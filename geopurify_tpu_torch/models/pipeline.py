@@ -1,0 +1,241 @@
+"""GeoPurify Stage-2 inference: ``GeoPurifyPipeline.evaluate_scene``.
+
+Port of the Stage-2 half of geopurify_tpu/models/pipeline.py. Per scene:
+1. per micro-batch of ``view_batch`` views, the X-Decoder forward and the
+   index-valued lift (``_view_step``);
+2. cross-view top-k consensus fusion and the global unseen-point fill
+   (``lift_scene``);
+3. voxel scatter-mean of semantic || geometric features and the sparse-conv
+   student (``_voxel_embed``);
+4. the kNN-96 affinity graph and the smoothing rounds, banded through
+   kernel K1 (``_smooth``);
+5. classification against the text embeddings, in logit space (smooth the
+   [M, n_cls] projections; argmax-exact) or in feature space.
+
+The pipeline holds its modules on one device: ``cuda`` by default, which
+raises on a machine without a card; tests pass ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from geopurify_tpu_torch import resolve_device
+from geopurify_tpu_torch.config import GeoPurifyConfig
+from geopurify_tpu_torch.data.batch import SceneBatch
+from geopurify_tpu_torch.models.lift import (
+    ViewLiftIds,
+    fill_unseen_points,
+    fill_unseen_points_voxel,
+    fuse_views_indexed,
+    lift_view_ids,
+)
+from geopurify_tpu_torch.models.student import AffinityPredictor
+from geopurify_tpu_torch.models.xdecoder import XDecoderSegModel
+from geopurify_tpu_torch.ops.pooling import geometry_guided_pooling
+from geopurify_tpu_torch.ops.segment import segment_mean
+from geopurify_tpu_torch.ops.sparse_conv import build_neighbor_table
+
+
+# geopurify_tpu/models/pipeline.py:63
+class GeoPurifyPipeline:
+    """Frozen X-Decoder teacher + student + smoothing, on one device."""
+
+    def __init__(self, cfg: GeoPurifyConfig, text_embeddings: torch.Tensor,
+                 logit_scale: float, teacher_state: Optional[dict] = None,
+                 student_state: Optional[dict] = None, device="cuda"):
+        """``text_embeddings`` [n_cls + 1, dim] (background last, L2-normed);
+        ``teacher_state`` / ``student_state``: state dicts of the port's
+        modules (``utils.from_jax`` builds them from JAX variables)."""
+        if cfg.xdecoder.lift_backend != "xdecoder":
+            raise NotImplementedError("only the xdecoder lift backend is ported")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.xdecoder = XDecoderSegModel(cfg.xdecoder).eval()
+        if teacher_state is not None:
+            self.xdecoder.load_state_dict(teacher_state)
+        s = cfg.student
+        self.student = AffinityPredictor(s.input_dim, s.hidden_dim, s.embed_dim,
+                                         s.num_res_blocks, s.compute_dtype).eval()
+        if student_state is not None:
+            self.student.load_state_dict(student_state)
+        self.xdecoder.to(self.device)
+        self.student.to(self.device)
+        self.text_embeddings = torch.as_tensor(text_embeddings, dtype=torch.float32,
+                                               device=self.device)
+        self.logit_scale = float(logit_scale)
+
+    # ------------------------------------------------------------------
+    # geopurify_tpu/models/pipeline.py:131
+    def _view_step(self, batch: SceneBatch, lo: int) -> ViewLiftIds:
+        """X-Decoder forward + index-valued lift of views [lo, lo + B)."""
+        B = max(1, min(self.cfg.xdecoder.view_batch, batch.images.shape[0]))
+        P = batch.points.shape[0]
+        sl = slice(lo, lo + B)
+        images = batch.images[sl].to(torch.float32)
+        rows, cols = batch.view_rows[sl], batch.view_cols[sl]
+        pv_valid = batch.view_point_valid[sl]
+        view_coords = batch.points[batch.view_point_ids[sl].long() % P]
+        out = self.xdecoder(images, self.text_embeddings, self.logit_scale)
+        text_no_bg = self.text_embeddings[:-1]
+        lifts = [
+            lift_view_ids(
+                out["pred_masks"][b], out["mask_embed"][b], out["pred_logits"][b],
+                rows[b], cols[b], pv_valid[b], view_coords[b], text_no_bg,
+                self.logit_scale, tuple(self.cfg.xdecoder.mask_shape),
+                mask_threshold=self.cfg.xdecoder.mask_threshold)
+            for b in range(images.shape[0])
+        ]
+        return ViewLiftIds(*(torch.stack(x) for x in zip(*lifts)))
+
+    # geopurify_tpu/models/pipeline.py:210
+    def lift_scene(self, batch: SceneBatch, n_valid: Optional[int] = None,
+                   stage_seconds: Optional[dict] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Lift every valid view (packed first) in micro-batches, fuse, fill.
+        Returns (fused features [P, feature_dim] f32, view_count [P])."""
+        V = batch.images.shape[0]
+        Pv = batch.view_point_ids.shape[1]
+        C = self.cfg.pooling.feature_dim
+        n_cls = len(self.cfg.data.all_label)
+        P = batch.points.shape[0]
+        B = max(1, min(self.cfg.xdecoder.view_batch, V))
+        dev = batch.points.device
+        if n_valid is None:
+            n_valid = int(batch.view_valid.sum())
+        t0 = time.perf_counter()
+        bufs = ([], [], [])
+        for lo in range(0, n_valid, B):
+            start = min(lo, max(V - B, 0))     # shift the tail batch back, no wrap
+            lift = self._view_step(batch, start)
+            keep = min(B, n_valid - lo)
+            sl = slice(lo - start, lo - start + keep)
+            for buf, x in zip(bufs, lift):
+                buf.append(x[sl])
+        _mark(stage_seconds, "views", t0, dev)
+        t1 = time.perf_counter()
+        pad = V - n_valid
+        vp_valid = batch.view_point_valid & batch.view_valid[:, None]
+        if n_valid == 0:
+            winner = torch.zeros((V, Pv), dtype=torch.int32, device=dev)
+            emb_t = torch.zeros((V, 2, C), device=dev)
+            logit_t = torch.zeros((V, 2, n_cls), device=dev)
+        else:
+            winner, emb_t, logit_t = (torch.cat(b) for b in bufs)
+            if pad:
+                Qe = emb_t.shape[1]
+                winner = torch.cat([winner, winner.new_zeros((pad, Pv))])
+                emb_t = torch.cat([emb_t, emb_t.new_zeros((pad, Qe, C))])
+                logit_t = torch.cat([logit_t, logit_t.new_zeros((pad, Qe, n_cls))])
+        fused, count = fuse_views_indexed(
+            winner, emb_t, logit_t, batch.view_point_ids, vp_valid,
+            num_points=P, top_k=self.cfg.xdecoder.fusion_top_k)
+        if P >= (1 << 19):
+            fused = fill_unseen_points_voxel(
+                fused, count, batch.point_valid, batch.point2voxel,
+                batch.voxel_coords, batch.voxel_valid)
+        else:
+            fused = fill_unseen_points(fused, batch.points, count, batch.point_valid)
+        _mark(stage_seconds, "fuse_fill", t1, dev)
+        return fused, count
+
+    # geopurify_tpu/models/pipeline.py:320
+    def _voxel_embed(self, f2d: torch.Tensor, batch: SceneBatch):
+        """Voxel scatter-mean (semantic || geometric) + student forward.
+        (The JAX z-stacked conv layout above ``zstack_min_voxels`` computes
+        the same convolution; the port always uses the plain table.)"""
+        M = batch.voxel_coords.shape[0]
+        p2v = torch.where(batch.point_valid, batch.point2voxel.long(), M)
+        voxel_sem = segment_mean(f2d, p2v, M)
+        voxel_geom = segment_mean(batch.geom_feats.to(torch.float32), p2v, M)
+        voxel_in = torch.cat([voxel_sem, voxel_geom], 1)
+        nbr = build_neighbor_table(batch.voxel_coords, batch.voxel_valid)
+        embed = self.student(voxel_in, nbr, batch.voxel_valid)
+        return voxel_in, embed, p2v
+
+    # geopurify_tpu/models/pipeline.py:343
+    def _smooth(self, embed, feats, batch: SceneBatch):
+        pc = self.cfg.pooling
+        return geometry_guided_pooling(
+            embed, feats, batch.voxel_coords, batch.voxel_valid,
+            k=pc.knn_k, sharpen=pc.sharpen, num_iterations=pc.num_iterations,
+            spmm_mode=pc.spmm_mode, band=pc.band, max_residual=pc.max_residual)
+
+    # geopurify_tpu/models/pipeline.py:354
+    def _pool_scene(self, f2d, batch: SceneBatch):
+        M = batch.voxel_coords.shape[0]
+        voxel_in, embed, p2v = self._voxel_embed(f2d, batch)
+        refined, band_overflow = self._smooth(
+            embed, voxel_in[:, : self.cfg.pooling.feature_dim], batch)
+        refined = torch.cat([refined, refined.new_zeros((1, refined.shape[1]))])
+        out = refined[torch.clamp(p2v, max=M)]
+        return torch.where(batch.point_valid[:, None], out, 0.0), band_overflow
+
+    # geopurify_tpu/models/pipeline.py:471
+    def _classify(self, refined):
+        f = refined / torch.clamp(torch.linalg.norm(refined, dim=-1, keepdim=True),
+                                  min=1e-12)
+        logits = self.logit_scale * f @ self.text_embeddings[:-1].T
+        return logits, torch.argmax(logits, dim=-1)
+
+    # geopurify_tpu/models/pipeline.py:420
+    def _pool_classify(self, f2d, batch: SceneBatch, want_features: bool = False):
+        pc = self.cfg.pooling
+        if pc.smooth_space == "logit":
+            # smooth the [M, n_cls] projections: the rounds are linear and the
+            # per-row normalization cannot move the argmax
+            M = batch.voxel_coords.shape[0]
+            voxel_in, embed, p2v = self._voxel_embed(f2d, batch)
+            proj = voxel_in[:, : pc.feature_dim] @ self.text_embeddings[:-1].T
+            smoothed, band_overflow = self._smooth(embed, proj, batch)
+            smoothed = torch.cat([smoothed, smoothed.new_zeros((1, smoothed.shape[1]))])
+            pt = smoothed[torch.clamp(p2v, max=M)]
+            logits = self.logit_scale * torch.where(batch.point_valid[:, None], pt, 0.0)
+            pred = torch.argmax(logits, dim=-1)
+            refined = None
+            if want_features:
+                vi = voxel_in[:, : pc.feature_dim]
+                vi = torch.cat([vi, vi.new_zeros((1, vi.shape[1]))])
+                refined = torch.where(batch.point_valid[:, None],
+                                      vi[torch.clamp(p2v, max=M)], 0.0)
+            return refined, band_overflow, logits, pred
+        refined, band_overflow = self._pool_scene(f2d, batch)
+        logits, pred = self._classify(refined)
+        return (refined if want_features else None), band_overflow, logits, pred
+
+    # geopurify_tpu/models/pipeline.py:376
+    @torch.inference_mode()
+    def evaluate_scene(self, batch: SceneBatch, n_valid_views: Optional[int] = None,
+                       want_features: bool = False, profile: bool = False
+                       ) -> Dict[str, object]:
+        """Full Stage-2: per-point open-vocab logits + predictions.
+
+        Returns ``scene_features`` (None unless ``want_features``),
+        ``logits`` [P, n_cls], ``pred`` [P], ``view_count`` [P] and
+        ``band_overflow`` (int: > 0 means the banded operator overflowed and
+        the exact gather path ran). ``profile`` synchronizes the device at
+        the stage boundaries and adds ``stage_seconds`` (views, fuse_fill,
+        pool_classify)."""
+        stages = {} if profile else None
+        f2d, view_count = self.lift_scene(batch, n_valid=n_valid_views,
+                                          stage_seconds=stages)
+        t0 = time.perf_counter()
+        refined, band_overflow, logits, pred = self._pool_classify(
+            f2d, batch, want_features=want_features)
+        _mark(stages, "pool_classify", t0, f2d.device)
+        out = {"scene_features": refined, "logits": logits, "pred": pred,
+               "view_count": view_count, "band_overflow": band_overflow}
+        if profile:
+            out["stage_seconds"] = stages
+        return out
+
+
+def _mark(stages: Optional[dict], name: str, t0: float, device) -> None:
+    if stages is None:
+        return
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    stages[name] = time.perf_counter() - t0

@@ -1,0 +1,236 @@
+"""X-Decoder query decoder + assembled 2D teacher (seg inference path).
+
+Port of geopurify_tpu/models/xdecoder.py: 201 learned queries, 3-level
+memory with level embeddings and sine PE, ``dec_layers`` rounds of masked
+cross-attention -> structured self-attention -> FFN, and per-round
+prediction heads. Only the default inference order (``return_aux=False``,
+xdecoder.py:138-149,176-178) is ported: the mask features are resized to
+the three memory sizes once, and each round's attention mask is the mask
+einsum at the target size, thresholded at sigmoid < 0.5.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from geopurify_tpu_torch.config import XDecoderConfig
+from geopurify_tpu_torch.models.focalnet import FocalNet
+from geopurify_tpu_torch.models.layers import (
+    CrossAttentionLayer,
+    FFNLayer,
+    LayerNorm,
+    MLPHead,
+    SelfAttentionLayer,
+    position_embedding_sine,
+    resize_bicubic_antialias,
+)
+from geopurify_tpu_torch.models.pixel_decoder import TransformerEncoderPixelDecoder
+
+
+# geopurify_tpu/models/xdecoder.py:45
+def _structured_self_attn_mask(num_queries: int) -> np.ndarray:
+    """[Q, Q] bool, True = blocked: object queries and the class token (the
+    last query) do not see each other."""
+    Q = num_queries
+    m = np.zeros((Q, Q), bool)
+    m[: Q - 1, Q - 1: Q] = True
+    m[Q - 1: Q, : Q - 1] = True
+    return m
+
+
+# geopurify_tpu/models/xdecoder.py:59
+class XDecoderHead(nn.Module):
+    """Query decoder over pixel-decoder outputs (seg task, inference order)."""
+
+    def __init__(self, hidden_dim: int = 512, dim_proj: int = 512,
+                 num_queries: int = 201, nheads: int = 8, dim_feedforward: int = 2048,
+                 dec_layers: int = 9, mask_dim: int = 512, num_levels: int = 3,
+                 dtype=torch.float32):
+        super().__init__()
+        C = hidden_dim
+        self.hidden_dim, self.num_queries, self.dec_layers = C, num_queries, dec_layers
+        self.dtype = dtype
+        self.level_embed = nn.Parameter(torch.zeros(num_levels, C))
+        self.query_feat = nn.Parameter(torch.zeros(num_queries, C))
+        self.query_embed = nn.Parameter(torch.zeros(num_queries, C))
+        self.class_embed = nn.Parameter(torch.zeros(C, dim_proj))
+        self.mask_embed = MLPHead(C, C, mask_dim, 3, dtype=dtype)
+        self.decoder_norm = LayerNorm(C)
+        for i in range(dec_layers):
+            self.add_module(f"cross_attn{i}", CrossAttentionLayer(C, nheads, dtype))
+            self.add_module(f"self_attn{i}", SelfAttentionLayer(C, nheads, dtype))
+            self.add_module(f"ffn{i}", FFNLayer(C, dim_feedforward, dtype))
+
+    def forward(
+        self,
+        multi_scale: List[torch.Tensor],   # 3 NHWC maps, lowest-res first
+        mask_features: torch.Tensor,       # [B, H4, W4, mask_dim]
+        text_embeddings: torch.Tensor,     # [n_cls(+1), dim_proj]
+        logit_scale,                       # [] (already exp'd)
+        attn_mask_override: Optional[List[torch.Tensor]] = None,
+        return_attn: bool = False,
+    ) -> Dict[str, torch.Tensor]:
+        """``attn_mask_override[i]`` forces round i's cross-attention mask
+        ([B, Q, HW_level] bool, True = block) and ``return_attn`` returns the
+        masks the rounds computed under ``attn_masks`` (and round 0's
+        pre-threshold logits under ``attn_logits0``) — instrumentation for
+        holding the port against JAX on the same binarized masks."""
+        dt = self.dtype
+        B = mask_features.shape[0]
+        Q, C = self.num_queries, self.hidden_dim
+        dev = mask_features.device
+
+        srcs, poss, sizes = [], [], []
+        for i, x in enumerate(multi_scale):
+            b, h, w, c = x.shape
+            sizes.append((h, w))
+            pe = position_embedding_sine(h, w, C // 2, dtype=dt, device=dev)
+            poss.append(pe[None].expand(b, h, w, C).reshape(b, h * w, C))
+            srcs.append(x.reshape(b, h * w, c) + self.level_embed[i].to(dt)[None, None])
+
+        self_mask = torch.from_numpy(_structured_self_attn_mask(Q)).to(dev)[None, None]
+        mf = mask_features.to(torch.float32)
+        text_t = text_embeddings.to(torch.float32)
+        mf_small = [resize_bicubic_antialias(mf, s) for s in sizes]
+
+        def prediction_heads(output, level: int, want_full: bool):
+            dec = self.decoder_norm(output)                        # f32 [B, Q, C]
+            ndec = dec / (torch.linalg.norm(dec, dim=-1, keepdim=True) + 1e-7)
+            obj_tok, cls_tok = ndec[:, : Q - 1], ndec[:, Q - 1: Q]
+            sim = torch.softmax(torch.einsum("bic,bqc->biq", cls_tok, obj_tok),
+                                dim=-1)[:, 0, :, None]
+            cls_re = (sim * dec[:, : Q - 1]).sum(1, keepdim=True)
+            dec_out = torch.cat([dec[:, : Q - 1], cls_re], 1)     # [B, Q, C]
+            class_embed = dec_out @ self.class_embed
+            v = class_embed / (torch.linalg.norm(class_embed, dim=-1, keepdim=True) + 1e-7)
+            outputs_class = logit_scale * torch.einsum("bqd,nd->bqn", v, text_t)
+            m_emb = self.mask_embed(dec_out.to(dt)).to(torch.float32)
+            outputs_mask = (torch.einsum("bqc,bhwc->bqhw", m_emb, mf)
+                            if want_full else None)
+            logits = torch.einsum("bqc,bhwc->bqhw", m_emb, mf_small[level])
+            am = torch.sigmoid(logits).reshape(B, Q, -1) < 0.5        # True = block
+            am = am & ~am.all(dim=-1, keepdim=True)
+            return outputs_class, outputs_mask, class_embed, am, logits
+
+        output = self.query_feat[None].expand(B, Q, C).to(dt)
+        qpe = self.query_embed[None].expand(B, Q, C).to(dt)
+        num_levels = len(multi_scale)
+        outputs_class, outputs_mask, class_embed, am, logits0 = prediction_heads(
+            output, 0, want_full=self.dec_layers == 0)
+        attn = [am]
+        for i in range(self.dec_layers):
+            level = i % num_levels
+            if attn_mask_override is not None:
+                am = attn_mask_override[i]
+            output = getattr(self, f"cross_attn{i}")(
+                output, srcs[level], memory_mask=am[:, None], pos=poss[level],
+                query_pos=qpe)
+            output = getattr(self, f"self_attn{i}")(output, query_pos=qpe,
+                                                    tgt_mask=self_mask)
+            output = getattr(self, f"ffn{i}")(output)
+            outputs_class, outputs_mask, class_embed, am, _ = prediction_heads(
+                output, (i + 1) % num_levels, want_full=i == self.dec_layers - 1)
+            attn.append(am)
+        out = {
+            "pred_logits": outputs_class[:, : Q - 1],
+            "pred_masks": outputs_mask[:, : Q - 1],
+            "mask_embed": class_embed[:, : Q - 1],
+            "cls_logits": outputs_class[:, Q - 1],
+            "cls_embed": class_embed[:, Q - 1],
+        }
+        if return_attn:
+            out["attn_masks"] = attn
+            out["attn_logits0"] = logits0          # round 0, pre-threshold
+        return out
+
+
+def model_dtype(cfg: XDecoderConfig):
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+# geopurify_tpu/models/xdecoder.py:267
+def _normalize_and_pad(cfg: XDecoderConfig, images: torch.Tensor) -> torch.Tensor:
+    """Pixel normalization + /size_divisibility zero padding (NHWC)."""
+    mean = torch.tensor(cfg.pixel_mean, dtype=torch.float32, device=images.device)
+    std = torch.tensor(cfg.pixel_std, dtype=torch.float32, device=images.device)
+    x = (images.to(torch.float32) - mean) / std
+    H, W = x.shape[1:3]
+    div = cfg.size_divisibility
+    Hp, Wp = -(-H // div) * div, -(-W // div) * div
+    return torch.nn.functional.pad(x, (0, 0, 0, Wp - W, 0, Hp - H))
+
+
+# geopurify_tpu/models/xdecoder.py:280
+def _make_backbone(cfg: XDecoderConfig) -> FocalNet:
+    if cfg.backbone_type != "focalnet" or cfg.backbone.variant != "focal":
+        raise NotImplementedError(
+            f"backbone {cfg.backbone_type}/{cfg.backbone.variant}: only the "
+            "focalnet 'focal' variant is ported")
+    bb = cfg.backbone
+    dtype = model_dtype(cfg)
+    return FocalNet(
+        embed_dim=bb.embed_dim, depths=tuple(bb.depths),
+        focal_levels=tuple(bb.focal_levels), focal_windows=tuple(bb.focal_windows),
+        mlp_ratio=bb.mlp_ratio, fast_gelu=bb.fast_gelu and dtype == torch.bfloat16,
+        out_indices=tuple(bb.out_indices), dtype=dtype,
+    )
+
+
+# geopurify_tpu/models/xdecoder.py:393
+class XDecoderSegModel(nn.Module):
+    """Backbone + pixel decoder + query decoder (forward_seg_all)."""
+
+    def __init__(self, cfg: XDecoderConfig):
+        super().__init__()
+        if cfg.pixel_decoder != "fpn":
+            raise NotImplementedError("only the 'fpn' pixel decoder is ported")
+        bb = cfg.backbone
+        if not (bb.use_conv_embed and bb.use_postln and bb.use_layerscale
+                and bb.scaling_modulator and not bb.use_postln_in_modulation
+                and not cfg.pre_norm):
+            raise NotImplementedError("only the xdecoder_focall settings are ported "
+                                      "(conv embed, post-norm, layerscale)")
+        self.cfg = cfg
+        dtype = model_dtype(cfg)
+        chans = [bb.embed_dim * 2 ** i for i in range(len(bb.depths))]
+        self.backbone = _make_backbone(cfg)
+        self.pixel_decoder = TransformerEncoderPixelDecoder(
+            chans, conv_dim=cfg.conv_dim, mask_dim=cfg.mask_dim,
+            num_enc_layers=cfg.enc_layers, num_heads=cfg.nheads,
+            dim_feedforward=cfg.dim_feedforward, dtype=dtype)
+        self.predictor = XDecoderHead(
+            hidden_dim=cfg.hidden_dim, dim_proj=cfg.hidden_dim,
+            num_queries=cfg.num_queries, nheads=cfg.nheads,
+            dim_feedforward=cfg.dim_feedforward, dec_layers=cfg.dec_layers,
+            mask_dim=cfg.mask_dim, dtype=dtype)
+
+    def forward(self, images, text_embeddings, logit_scale) -> Dict[str, torch.Tensor]:
+        mask_features, multi_scale = encode_pixel_features(self, images)
+        out = apply_head(self, multi_scale, mask_features, text_embeddings, logit_scale)
+        x_hw = -(-images.shape[1] // self.cfg.size_divisibility) * self.cfg.size_divisibility
+        y_hw = -(-images.shape[2] // self.cfg.size_divisibility) * self.cfg.size_divisibility
+        out["padded_hw"] = torch.tensor([x_hw, y_hw])
+        return out
+
+
+# geopurify_tpu/models/xdecoder.py:355
+def encode_pixel_features(model: XDecoderSegModel, images: torch.Tensor
+                          ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Normalize/pad + backbone + pixel decoder: (mask_features, multi_scale)."""
+    x = _normalize_and_pad(model.cfg, images)
+    feats = model.backbone(x.to(model_dtype(model.cfg)))
+    mask_features, _, multi_scale = model.pixel_decoder(feats)
+    return mask_features, multi_scale
+
+
+# geopurify_tpu/models/xdecoder.py:375
+def apply_head(model: XDecoderSegModel, multi_scale: Sequence[torch.Tensor],
+               mask_features: torch.Tensor, text_embeddings, logit_scale,
+               **kw) -> Dict[str, torch.Tensor]:
+    """The query-decoder half of ``XDecoderSegModel``."""
+    return model.predictor(list(multi_scale), mask_features, text_embeddings,
+                           logit_scale, **kw)

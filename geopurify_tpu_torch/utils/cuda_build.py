@@ -1,0 +1,80 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C entry point and compiles on its
+own into ``geopurify_tpu_torch/_build/lib<name>-<hash>.so`` (the hash is
+the source's, so an edited source rebuilds). Sources include no PyTorch
+header, which keeps a build to seconds. ``build_all`` starts one nvcc per
+source at once and waits for all of them. Nothing here runs at import.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD = PKG / "_build"
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+SOURCES = ("band_matmul",)
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and Path(cand).exists():
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    return BUILD / f"lib{name}-{digest}.so"
+
+
+def _command(name: str, out: Path):
+    return [_nvcc(), ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
+            "-fPIC", "-Xptxas", "-v", "-o", str(out), str(CSRC / f"{name}.cu")]
+
+
+def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
+    """Compile every missing library in parallel; returns name -> ptxas log
+    (empty for a library that was already built). Raises on a failed build."""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _lib_path(name)
+        if not out.exists():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            procs[name] = (subprocess.Popen(
+                _command(name, tmp), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True), tmp, out)
+    logs = {name: "" for name in names}
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{logs[name]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library for ``csrc/<name>.cu`` (built on first use)."""
+    if name not in _loaded:
+        path = _lib_path(name)
+        if not path.exists():
+            build_all([name])
+        _loaded[name] = ctypes.CDLL(str(path))
+    return _loaded[name]
