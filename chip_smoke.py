@@ -6,19 +6,35 @@ exits non-zero, printing no result, without them. Run from the repo root:
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero):
+Phases (any failure exits non-zero; each prints its seconds):
 1. the card's name and power limit; build every CUDA kernel from csrc/;
 2. kernel K1 (banded-window matmul) against its plain PyTorch version at
    the Stage-2 shapes (M=65536, band=12288, C=19 and C=32), with its time,
    the plain version's, a torch.bmm yardstick and the bytes bound;
-3. the main path at full width: ``GeoPurifyPipeline.evaluate_scene`` at
-   the ``scannet`` preset (FocalNet-L X-Decoder in bf16, 518-512-128
+3. the Stage-2 main path at full width: ``GeoPurifyPipeline.evaluate_scene``
+   at the ``scannet`` preset (FocalNet-L X-Decoder in bf16, 518-512-128
    student, kNN-96 + 19 banded smoothing rounds) on 3 bench-spec scenes
    (P=131072, M=65536, V=8, Pv=16384, 484x648), seeded random weights,
    counting K1's launches; plus the gather path timed on one scene's graph
    and one more scene under torch.profiler (kernels by device time);
 4. the same seeded pipeline at the small bench --smoke sizes on the card and
-   on the CPU (plain versions): predictions must agree.
+   on the CPU (plain versions): predictions must agree;
+5. kernel K2 (fused InfoNCE forward and backward) against its plain
+   versions at the Stage-1 shapes (A=4096, NEG=63, E=128) and at an awkward
+   one, all-invalid anchors, and its times beside the plain versions', a
+   torch.bmm + cross_entropy yardstick and the bytes bounds;
+6. the Stage-1 main path at full width: ``scannet`` with
+   ``contrastive.fused_loss=true`` on one bench-spec scene: f2d from the
+   seeded X-Decoder lift, teacher features from the full Sonata in bf16,
+   then 1 warm-up and 5 timed training steps (``run.train.make_train_step``:
+   sampler, student in train mode, K2, AdamW), counting K2's launches, with
+   the sampler / spatial kNN / fwd+bwd / optimizer split and one profiled
+   step;
+7. the training entry point ``run.train.main --synthetic`` at the scannet
+   preset: 2 steps, checkpoint, resume for one more step;
+8. Stage 1 at the ``tiny`` preset on the card and on the CPU (K2 against
+   its plain versions, f32 tiny Sonata, TF32 off): loss, gradients and
+   running statistics must agree.
 
 The line before the last holds the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. A fuller record goes to
@@ -31,6 +47,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -40,6 +57,7 @@ import torch
 HERE = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 peak memory rate
 BF16_FLOPS = 989e12                # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12                  # H100 SXM f32 peak outside the tensor cores
 BENCH_SPEC = dict(P=131072, M=65536, V=8, Pv=16384)
 SMOKE_SPEC = dict(P=512, M=256, V=2, Pv=128)
 
@@ -213,7 +231,8 @@ def phase_main(cfg_mod, pipe_mod, batch_mod, band_mod, pool_mod, n_scenes=3):
     log(f"smoothing on one scene: kNN-96 graph {graph_s * 1e3:.1f} ms; "
         f"gather path ({pc.num_iterations} rounds) {gather_ms:.1f} ms; "
         f"banded path incl. graph + operator build {smooth_ms:.1f} ms")
-    prof = profile_scene(pipe, batch, sp["V"])
+    prof = profile_call(lambda: pipe.evaluate_scene(batch, n_valid_views=sp["V"]),
+                        "profiled scene")
     steady = per_scene[1:] or per_scene
     return dict(scenes=per_scene, k1_launches=launches, peak_bytes=peak, profile=prof,
                 seconds_per_scene_steady=sum(s["seconds"] for s in steady) / len(steady),
@@ -221,15 +240,15 @@ def phase_main(cfg_mod, pipe_mod, batch_mod, band_mod, pool_mod, n_scenes=3):
                 banded_smoothing_ms=smooth_ms)
 
 
-def profile_scene(pipe, batch, n_valid: int):
-    """One more scene under torch.profiler: device kernels ranked by their
-    own device time, and the device's busy share of the profiled wall."""
+def profile_call(fn, label: str):
+    """``fn`` once under torch.profiler: device kernels ranked by their own
+    device time, and the device's busy share of the profiled wall."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        pipe.evaluate_scene(batch, n_valid_views=n_valid)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     cuda = torch.autograd.DeviceType.CUDA
@@ -237,7 +256,7 @@ def profile_scene(pipe, batch, n_valid: int):
                    for e in prof.key_averages() if e.device_type == cuda),
                   key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    log(f"profiled scene: wall {wall_ms:.1f} ms (profiler on), device busy "
+    log(f"{label}: wall {wall_ms:.1f} ms (profiler on), device busy "
         f"{busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}); top kernels by own time:")
     for name, ms, n in rows[:15]:
         log(f"  {ms:9.2f} ms  x{n:<5d} {name[:100]}")
@@ -316,6 +335,352 @@ def phase_small(cfg_mod, pipe_mod, batch_mod, band_mod):
     return dict(flips=flips, max_abs_logit_diff=dmax, logit_scale=scale)
 
 
+# ---------------------------------------------------------------------------
+# phase 5: K2 against its plain versions
+# ---------------------------------------------------------------------------
+
+def k2_inputs(A: int, NEG: int, E: int, seed: int, p_valid: float):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn((A, E), generator=g, device="cuda")
+    p = torch.randn((A, E), generator=g, device="cuda")
+    n = torch.randn((A, NEG, E), generator=g, device="cuda")
+    valid = torch.rand((A,), generator=g, device="cuda") < p_valid
+    return a, p, n, valid
+
+
+def k2_bound_ms(A: int, NEG: int, E: int, backward: bool):
+    """Each input read once and each output written once: a, p, n f32 and
+    valid bool in; the per-anchor loss out (forward), or g in and da, dp,
+    dn out (backward). Operations: ~4 E flops a row for its norm and its dot
+    with the anchor (NEG + 2 rows), ~3x that backward, at the f32 rate."""
+    emb = 4 * (2 * A * E + A * NEG * E)
+    bytes_ = emb + A + (4 * A + emb if backward else 4 * A)
+    flops = 4.0 * E * (NEG + 2) * A * (3 if backward else 1)
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def k2_library(a, p, n, valid, temperature: float):
+    """The yardstick the port never calls: F.normalize, torch.bmm logits and
+    F.cross_entropy, masked mean."""
+    import torch.nn.functional as F
+
+    an, pn, nn_ = (F.normalize(x, dim=-1, eps=1e-12) for x in (a, p, n))
+    lp = (an * pn).sum(-1, keepdim=True)
+    ln = torch.bmm(nn_, an[:, :, None])[..., 0]
+    logits = torch.cat([lp, ln], 1) / temperature
+    target = torch.zeros((a.shape[0],), dtype=torch.long, device=a.device)
+    per = F.cross_entropy(logits, target, reduction="none")
+    w = valid.to(per.dtype)
+    return (per * w).sum() / w.sum().clamp(min=1.0)
+
+
+def phase_k2(nce_mod, T=0.07):
+    fwd, bwd = nce_mod.info_nce_fwd, nce_mod.info_nce_bwd
+    checks = {}
+    for (A, NEG, E, p_valid) in ((4096, 63, 128, 1.0), (512, 7, 16, 0.8)):
+        a, p, n, valid = k2_inputs(A, NEG, E, seed=A + NEG, p_valid=p_valid)
+        denom = valid.float().sum().clamp(min=1.0)
+        per = fwd(a, p, n, valid, T)
+        # an upstream gradient of order 1 (not the masked mean's 1/sum(valid)),
+        # so that atol 1e-6 sits far below the gradients' own size
+        g = torch.rand((A,), generator=torch.Generator(device="cuda").manual_seed(A),
+                       device="cuda")
+        da, dp, dn = bwd(a, p, n, valid, T, g)
+        torch.cuda.synchronize()
+        per_ref = nce_mod.per_anchor_loss_ref(a, p, n, valid, T)
+        grads_ref = nce_mod.per_anchor_grads_ref(a, p, n, valid, T, g)
+        loss, loss_ref = (per.sum() / denom).item(), (per_ref.sum() / denom).item()
+        rel = abs(loss - loss_ref) / abs(loss_ref)
+        fwd_err = (per - per_ref).abs().max().item()
+        bwd_err = max((x - y).abs().max().item() for x, y in zip((da, dp, dn), grads_ref))
+        grad_scale = min(y.abs().max().item() for y in grads_ref)
+        log(f"K2 (A={A}, NEG={NEG}, E={E}, {int(valid.sum())} valid): loss {loss:.6f} "
+            f"vs plain {loss_ref:.6f} (rel {rel:.2e}); max_abs_err per-anchor "
+            f"{fwd_err:.2e}, gradients {bwd_err:.2e} (smallest max|grad| of da, dp, "
+            f"dn {grad_scale:.2e})")
+        assert rel <= 1e-5, f"K2 forward disagrees with its plain version (rel {rel})"
+        # each anchor's loss too, so that errors cannot cancel in the mean
+        torch.testing.assert_close(per, per_ref, rtol=1e-5,
+                                   atol=1e-6 * per_ref.abs().max().item())
+        # f32 sums over E and the negatives in another order than the plain
+        # version's einsum / logsumexp: tests/test_pallas_infonce.py's bound
+        for x, y in zip((da, dp, dn), grads_ref):
+            torch.testing.assert_close(x, y, rtol=2e-4, atol=1e-6)
+        checks[(A, NEG, E)] = dict(loss=loss, loss_rel=rel, fwd_err=fwd_err,
+                                   bwd_err=bwd_err, grad_scale=grad_scale)
+    xs = [x.clone().requires_grad_() for x in (a, p, n)]
+    dead = nce_mod.info_nce_loss_fused(*xs, torch.zeros_like(valid), T)
+    dead.backward()
+    assert dead.item() == 0.0 and all(torch.count_nonzero(x.grad) == 0 for x in xs)
+    log("K2 all-invalid: loss 0, gradients 0")
+
+    # times at the path's shapes
+    A, NEG, E = 4096, 63, 128
+    a, p, n, valid = k2_inputs(A, NEG, E, seed=A + NEG, p_valid=1.0)
+    g = torch.full((A,), 1.0 / A, device="cuda")
+    rows = {}
+    xs = [x.clone().requires_grad_() for x in (a, p, n)]
+    lib_loss = k2_library(*xs, valid, T)
+    for name, kernel, plain, library, backward in (
+            ("info_nce_fwd", lambda: fwd(a, p, n, valid, T),
+             lambda: nce_mod.per_anchor_loss_ref(a, p, n, valid, T),
+             lambda: k2_library(a, p, n, valid, T), False),
+            ("info_nce_bwd", lambda: bwd(a, p, n, valid, T, g),
+             lambda: nce_mod.per_anchor_grads_ref(a, p, n, valid, T, g),
+             lambda: torch.autograd.grad(lib_loss, xs, retain_graph=True), True)):
+        kernel_ms = cuda_ms(kernel, iters=50)
+        plain_ms = cuda_ms(plain, iters=10)
+        library_ms = cuda_ms(library, iters=20)
+        bound_ms, bound_by = k2_bound_ms(A, NEG, E, backward)
+        err = checks[(A, NEG, E)]["bwd_err" if backward else "fwd_err"]
+        rows[name] = dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+        log(f"{name}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bmm + cross_entropy {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}); {bound_ms / kernel_ms:.1%} of the bound")
+
+    def fused_step():
+        ys = [x.clone().requires_grad_() for x in (a, p, n)]
+        nce_mod.info_nce_loss_fused(*ys, valid, T).backward()
+
+    def library_step():
+        ys = [x.clone().requires_grad_() for x in (a, p, n)]
+        k2_library(*ys, valid, T).backward()
+
+    fused_ms = cuda_ms(fused_step, iters=20)
+    lib_step_ms = cuda_ms(library_step, iters=20)
+    log(f"K2 loss forward + backward through autograd: fused {fused_ms:.4f} ms, "
+        f"bmm + cross_entropy {lib_step_ms:.4f} ms")
+    return dict(rows=rows, checks={str(k): v for k, v in checks.items()},
+                fused_fwd_bwd_ms=fused_ms, library_fwd_bwd_ms=lib_step_ms)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the Stage-1 main path at full width
+# ---------------------------------------------------------------------------
+
+def seed_sonata(sonata, seed: int, device):
+    """The JAX initialisers' scales from a seed: He normal for the sparse-conv
+    kernels [K, Cin, Cout], LeCun normal for the Dense weights [out, in];
+    biases 0 and norm scales 1 as built."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for p in sonata.parameters():
+            if p.dim() == 3:
+                std = (2.0 / (p.shape[0] * p.shape[1])) ** 0.5
+            elif p.dim() == 2:
+                std = (1.0 / p.shape[1]) ** 0.5
+            else:
+                continue
+            p.copy_(torch.randn(p.shape, generator=g, device=device) * std)
+
+
+def synced(fn):
+    """(result, seconds) of ``fn`` on the host clock, the card synchronised."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def phase_stage1(mods, n_steps=5):
+    cfg_mod, pipe_mod, batch_mod = mods["cfg"], mods["pipe"], mods["batch"]
+    nce, train_mod = mods["nce"], mods["train"]
+    cfg = cfg_mod.load_config("scannet", overrides=["contrastive.fused_loss=true"])
+    cc = cfg.contrastive
+    n_cls = len(cfg.data.all_label)
+    text = text_embeddings(n_cls + 1, cfg.xdecoder.hidden_dim, seed=0)
+    sonata = pipe_mod.build_sonata(cfg.sonata).to("cuda")
+    seed_sonata(sonata, 3, "cuda")
+    pipe = pipe_mod.GeoPurifyPipeline(cfg, text, 20.0, device="cuda",
+                                      sonata_state=sonata.state_dict())
+    del sonata
+    seed_weights(pipe, 1, "cuda")
+    mods["student"].init_student_(pipe.student, torch.Generator().manual_seed(2))
+    sp = BENCH_SPEC
+    arrays = batch_mod.build_scene(11, sp["P"], sp["M"], sp["V"], sp["Pv"],
+                                   tuple(cfg.xdecoder.mask_shape))
+    batch = batch_mod.SceneBatch.from_numpy(arrays, device="cuda")
+    with torch.inference_mode():
+        (f2d, _), lift_s = synced(lambda: pipe.lift_scene(batch, n_valid=sp["V"]))
+    teacher_s = []
+    for _ in range(2):
+        ft, dt = synced(lambda: pipe.teacher_point_features(batch))
+        teacher_s.append(dt)
+    log(f"Stage-1 inputs: lift {lift_s:.3f} s; Sonata teacher (bf16, 5 stages, "
+        f"{sum(p.numel() for p in pipe.sonata.parameters()) / 1e6:.1f} M parameters) "
+        f"{teacher_s[0]:.3f} s first call, {teacher_s[1]:.3f} s second; "
+        f"features {tuple(ft.shape)}")
+    assert ft.shape == (sp["P"], pipe.sonata.out_channels) == (sp["P"], 1088)
+    assert torch.isfinite(ft).all() and ft.abs().max() > 0
+
+    optimizer, _ = mods["optim"].make_optimizer(cfg.train, pipe.student, steps_per_epoch=100)
+    state = train_mod.TrainState(pipe.student, optimizer, 0,
+                                 torch.Generator(device="cuda").manual_seed(5))
+    step = train_mod.make_train_step(pipe)
+    before = {k: v.detach().clone() for k, v in pipe.student.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    nce.info_nce_fwd.launches = nce.info_nce_bwd.launches = 0
+    losses, step_s = [], []
+    for _ in range(1 + n_steps):
+        loss, dt = synced(lambda: step(state, batch, f2d, ft))
+        losses.append(loss.item())
+        step_s.append(dt)
+    launches = (nce.info_nce_fwd.launches, nce.info_nce_bwd.launches)
+    peak = torch.cuda.max_memory_allocated()
+    s_per_step = sum(step_s[1:]) / n_steps
+    log(f"Stage-1 steps: warm-up {step_s[0]:.3f} s, then {s_per_step:.3f} s/step "
+        f"({', '.join(f'{t:.3f}' for t in step_s[1:])}); losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; K2 launches fwd {launches[0]} "
+        f"bwd {launches[1]} over {1 + n_steps} steps; peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    assert launches == (1 + n_steps, 1 + n_steps), launches
+    assert all(np.isfinite(losses)), losses
+    after = pipe.student.state_dict()
+    for kind, names in (("parameter", [k for k, _ in pipe.student.named_parameters()]),
+                        ("running statistic", [k for k, _ in pipe.student.named_buffers()])):
+        same = [k for k in names if torch.equal(before[k], after[k])]
+        assert not same, f"{kind}s unchanged by training: {same[:5]}"
+
+    # the split, as bench.py --stage1 --profile-stages takes it
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    sample = lambda: mods["ctr"].sample_contrastive_pairs_hybrid(  # noqa: E731
+        gen, ft, batch.point_valid, coords=batch.points, num_anchors=cc.num_anchors,
+        num_macro=cc.num_macro_negatives, num_micro=cc.num_micro_negatives,
+        spatial_k=cc.spatial_knn_k, spatial_method=cc.spatial_method,
+        spatial_radius=cc.spatial_radius)
+    with torch.no_grad():
+        pairs, _ = synced(sample)
+        sampler_s = min(synced(sample)[1] for _ in range(3))
+        knn_s = min(synced(lambda: mods["knn"].knn_anchors_grid(
+            batch.points, batch.point_valid, pairs.anchor_idx, k=cc.spatial_knn_k,
+            radius=cc.spatial_radius))[1] for _ in range(3))
+
+    def fwd_bwd():
+        state.optimizer.zero_grad()
+        loss, _ = pipe.stage1_loss(None, batch, f2d, ft, train=True, pairs=pairs)
+        loss.backward()
+
+    fb_s = min(synced(fwd_bwd)[1] for _ in range(3))
+    _, opt_s = synced(state.optimizer.step)
+    glue_s = s_per_step - sampler_s - fb_s - opt_s
+    log(f"Stage-1 split: sampler {sampler_s:.3f} s (spatial kNN {knn_s:.3f} s, "
+        f"feature part {sampler_s - knn_s:.3f} s), student fwd+bwd {fb_s:.3f} s, "
+        f"optimizer {opt_s:.3f} s, rest {glue_s:.3f} s")
+    prof = profile_call(lambda: step(state, batch, f2d, ft), "profiled Stage-1 step")
+    return dict(k2_launches=launches, steps=1 + n_steps, losses=losses, step_seconds=step_s,
+                seconds_per_step=s_per_step, peak_bytes=peak, lift_seconds=lift_s,
+                teacher_seconds=teacher_s, sampler_s=sampler_s, spatial_knn_s=knn_s,
+                student_fwd_bwd_s=fb_s, optimizer_s=opt_s, rest_s=glue_s, profile=prof)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the training entry point
+# ---------------------------------------------------------------------------
+
+def phase_train_main(nce, train_mod):
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["--synthetic", "--epochs", "1"]
+        overrides = ["contrastive.fused_loss=true", "train.print_freq=1",
+                     f"train.save_path={tmp}"]
+        n0 = (nce.info_nce_fwd.launches, nce.info_nce_bwd.launches)
+        state, first_s = synced(lambda: train_mod.main(
+            common + ["--steps-per-epoch", "2"] + overrides))
+        metrics = Path(tmp) / "metrics.jsonl"
+        recs = [json.loads(x) for x in metrics.read_text().splitlines()]
+        assert state.step == 2 and [r["step"] for r in recs] == [1, 2], recs
+        assert (Path(tmp) / "ckpt" / "step_2.pt").exists()
+        ckpt_mb = (Path(tmp) / "ckpt" / "step_2.pt").stat().st_size / 1e6
+        resumed, resume_s = synced(lambda: train_mod.main(
+            common + ["--steps-per-epoch", "1"] + overrides + [f"train.resume={tmp}/ckpt"]))
+        assert resumed.step == 3 and (Path(tmp) / "ckpt" / "step_3.pt").exists()
+        launches = (nce.info_nce_fwd.launches - n0[0], nce.info_nce_bwd.launches - n0[1])
+        assert launches == (3, 3), launches
+        recs = [json.loads(x) for x in metrics.read_text().splitlines()]
+    log(f"run.train.main --synthetic (scannet): 2 steps + checkpoint ({ckpt_mb:.0f} MB) "
+        f"in {first_s:.1f} s, resumed at step 2 -> 3 in {resume_s:.1f} s; losses "
+        f"{[round(r['loss'], 5) for r in recs]}; K2 launches {launches}")
+    assert all(np.isfinite(r["loss"]) for r in recs)
+    return dict(first_s=first_s, resume_s=resume_s, checkpoint_mb=ckpt_mb,
+                metrics=recs, k2_launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: Stage 1 on the card against the CPU at the tiny preset
+# ---------------------------------------------------------------------------
+
+def phase_stage1_small(mods):
+    cfg = mods["cfg"].load_config("tiny", overrides=["contrastive.fused_loss=true"])
+    nce = mods["nce"]
+    text = text_embeddings(len(cfg.data.all_label) + 1, cfg.xdecoder.hidden_dim, seed=2)
+    sonata = mods["pipe"].build_sonata(cfg.sonata)
+    seed_sonata(sonata, 7, "cpu")
+    cpu = mods["pipe"].GeoPurifyPipeline(cfg, text, 20.0, device="cpu",
+                                         sonata_state=sonata.state_dict())
+    mods["student"].init_student_(cpu.student, torch.Generator().manual_seed(6))
+    gpu = mods["pipe"].GeoPurifyPipeline(cfg, text, 20.0, device="cuda",
+                                         student_state=cpu.student.state_dict(),
+                                         sonata_state=sonata.state_dict())
+    make = mods["synth"].make_scene_batch
+    bc, bg = (make(seed=3, n_points=1500, n_views=2, device=d) for d in ("cpu", "cuda"))
+    P = bc.points.shape[0]
+    f2d = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(P, cfg.pooling.feature_dim)).astype(np.float32))
+    # f32 on both sides: no TF32 in the card's matmuls and convolutions
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ft_c = cpu.teacher_point_features(bc)
+        ft_g = gpu.teacher_point_features(bg)
+        ft_rel = ((ft_g.cpu() - ft_c).abs().max() / ft_c.abs().max()).item()
+        with torch.no_grad():
+            pairs = mods["ctr"].sample_contrastive_pairs_hybrid(
+                torch.Generator().manual_seed(9), ft_c, bc.point_valid, coords=bc.points,
+                num_anchors=cfg.contrastive.num_anchors,
+                num_macro=cfg.contrastive.num_macro_negatives,
+                num_micro=cfg.contrastive.num_micro_negatives,
+                spatial_k=cfg.contrastive.spatial_knn_k)
+        pairs_g = type(pairs)(*(x.cuda() for x in pairs))
+        n0 = (nce.info_nce_fwd.launches, nce.info_nce_bwd.launches)
+        loss_c, _ = cpu.stage1_loss(None, bc, f2d, ft_c.clone(), train=True, pairs=pairs)
+        loss_c.backward()
+        loss_g, _ = gpu.stage1_loss(None, bg, f2d.cuda(), ft_c.cuda(), train=True,
+                                    pairs=pairs_g)
+        loss_g.backward()
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    launches = (nce.info_nce_fwd.launches - n0[0], nce.info_nce_bwd.launches - n0[1])
+    rel = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
+    grads_c = {k: p.grad for k, p in cpu.student.named_parameters()}
+    top = max(g.abs().max().item() for g in grads_c.values())
+    worst = 0.0
+    for name, p in gpu.student.named_parameters():
+        gc, gg = grads_c[name], p.grad.cpu()
+        scale = gc.abs().max().item()
+        if scale < 1e-5 * top:
+            # a conv bias ahead of train-mode BatchNorm: 0 up to rounding
+            assert gg.abs().max().item() < 1e-5 * top, name
+            continue
+        worst = max(worst, (gg - gc).abs().max().item() / scale)
+    stats_err = max((b.cpu() - cpu.student.get_buffer(k)).abs().max().item()
+                    for k, b in gpu.student.named_buffers())
+    log(f"tiny Stage 1 card vs CPU: teacher features rel {ft_rel:.2e}; loss "
+        f"{loss_g.item():.6f} vs {loss_c.item():.6f} (rel {rel:.2e}); worst gradient "
+        f"rel {worst:.2e}; running stats max diff {stats_err:.2e}; K2 launches {launches}")
+    assert launches == (1, 1), launches
+    # f32 with TF32 off on both devices; sums in other orders, and the
+    # embedding gathers' and sparse convs' backward scatter through
+    # index_add_, atomically and in a changing order on the card
+    assert ft_rel <= 1e-4 and rel <= 1e-5
+    assert worst <= 1e-4 and stats_err <= 1e-5
+    return dict(teacher_rel=ft_rel, loss_rel=rel, worst_grad_rel=worst,
+                stats_max_diff=stats_err)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — needs a CUDA card",
@@ -324,11 +689,21 @@ def main() -> int:
     sys.path.insert(0, str(HERE))
     from geopurify_tpu_torch import config as cfg_mod
     from geopurify_tpu_torch.data import batch as batch_mod
+    from geopurify_tpu_torch.data import synthetic as synth_mod
     from geopurify_tpu_torch.models import pipeline as pipe_mod
+    from geopurify_tpu_torch.models import student as student_mod
     from geopurify_tpu_torch.ops import band as band_mod
+    from geopurify_tpu_torch.ops import contrastive as ctr_mod
+    from geopurify_tpu_torch.ops import infonce as nce_mod
+    from geopurify_tpu_torch.ops import knn as knn_mod
     from geopurify_tpu_torch.ops import pooling as pool_mod
+    from geopurify_tpu_torch.run import optim as optim_mod
+    from geopurify_tpu_torch.run import train as train_mod
     from geopurify_tpu_torch.utils.cuda_build import SOURCES, build_all
 
+    mods = dict(cfg=cfg_mod, batch=batch_mod, synth=synth_mod, pipe=pipe_mod,
+                student=student_mod, ctr=ctr_mod, nce=nce_mod, knn=knn_mod,
+                optim=optim_mod, train=train_mod)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
@@ -341,20 +716,42 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
+    phase_s = {"1 build": build_s}
 
-    k1 = phase_k1(band_mod)
-    main_rec = phase_main(cfg_mod, pipe_mod, batch_mod, band_mod, pool_mod)
-    small = phase_small(cfg_mod, pipe_mod, batch_mod, band_mod)
+    def run(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        phase_s[label] = time.perf_counter() - t0
+        log(f"phase {label}: {phase_s[label]:.1f} s")
+        return out
+
+    k1 = run("2 K1", phase_k1, band_mod)
+    main_rec = run("3 Stage-2 main path", phase_main, cfg_mod, pipe_mod, batch_mod,
+                   band_mod, pool_mod)
+    small = run("4 Stage-2 card vs CPU", phase_small, cfg_mod, pipe_mod, batch_mod, band_mod)
+    k2 = run("5 K2", phase_k2, nce_mod)
+    stage1 = run("6 Stage-1 main path", phase_stage1, mods)
+    train_rec = run("7 run.train.main", phase_train_main, nce_mod, train_mod)
+    stage1_small = run("8 Stage-1 card vs CPU", phase_stage1_small, mods)
 
     row = dict(name="banded_window_matmul", route="cuda",
                source="geopurify_tpu_torch/csrc/band_matmul.cu",
                replaces="geopurify_tpu/ops/pallas_band.py:115",
                launches=main_rec["k1_launches"], **k1[19])
-    record = dict(card=smi, build_seconds=build_s, k1=k1, main=main_rec, small=small)
+    k2_rows = [dict(name=name, route="cuda", source="geopurify_tpu_torch/csrc/infonce.cu",
+                    replaces=f"geopurify_tpu/ops/pallas_infonce.py:{line}",
+                    launches=launches, **k2["rows"][name])
+               for name, line, launches in (
+                   ("info_nce_fwd", 128, stage1["k2_launches"][0]),
+                   ("info_nce_bwd", 146, stage1["k2_launches"][1]))]
+    record = dict(card=smi, phase_seconds=phase_s, k1=k1, main=main_rec, small=small,
+                  k2=k2, stage1=stage1, train_main=train_rec, stage1_small=stage1_small)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
-    print(json.dumps({"kernels": [row]}))
+    (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))
+    print(json.dumps({"kernels": [row] + k2_rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

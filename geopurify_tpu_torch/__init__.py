@@ -1,6 +1,7 @@
 """geopurify_tpu_torch — the PyTorch / CUDA port of geopurify_tpu.
 
 Stage-2 inference (``models.pipeline.GeoPurifyPipeline.evaluate_scene``)
+and Stage-1 training (``GeoPurifyPipeline.stage1_loss``, ``run.train``)
 for one NVIDIA H100. The JAX package ``geopurify_tpu`` stays the reference:
 every module here cites its JAX counterpart by file:line, and the tests in
 ``tests/test_torch_port_*.py`` hold the two against each other on the CPU.

@@ -166,7 +166,7 @@ class ContrastiveConfig:
     # ANY value is exact — too small only routes queries into the fallback
     spatial_radius: float = 0.3
     temperature: float = 0.07
-    # fused InfoNCE kernel (kernel K2, Stage 1; not ported yet), opt-in
+    # fused InfoNCE kernel K2 (csrc/infonce.cu on the card), opt-in
     fused_loss: bool = False
 
 

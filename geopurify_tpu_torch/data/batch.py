@@ -116,3 +116,18 @@ def build_scene(seed: int, P: int, M: int, V: int, Pv: int, hw):
         view_rows=rows,
         view_cols=cols,
     )
+
+
+# geopurify_tpu/data/batch.py:46
+def pad_to(arr: np.ndarray, n: int, axis: int = 0, value=0) -> np.ndarray:
+    """Host-side pad / truncate along ``axis`` to exactly ``n``."""
+    cur = arr.shape[axis]
+    if cur == n:
+        return arr
+    if cur > n:
+        sl = [slice(None)] * arr.ndim
+        sl[axis] = slice(0, n)
+        return arr[tuple(sl)]
+    widths = [(0, 0)] * arr.ndim
+    widths[axis] = (0, n - cur)
+    return np.pad(arr, widths, constant_values=value)

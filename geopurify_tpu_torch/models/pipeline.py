@@ -1,6 +1,13 @@
-"""GeoPurify Stage-2 inference: ``GeoPurifyPipeline.evaluate_scene``.
+"""GeoPurify Stage-1 distillation loss and Stage-2 inference.
 
-Port of the Stage-2 half of geopurify_tpu/models/pipeline.py. Per scene:
+Port of geopurify_tpu/models/pipeline.py.
+
+Stage 1 (``stage1_loss``): frozen Sonata features per point
+(``teacher_point_features``) pick contrastive pairs; the student embeds
+the voxels (BatchNorm in train mode) and InfoNCE pulls the anchor towards
+its positive, through kernel K2 when ``contrastive.fused_loss`` is set.
+
+Stage 2 (``evaluate_scene``), per scene:
 1. per micro-batch of ``view_batch`` views, the X-Decoder forward and the
    index-valued lift (``_view_step``);
 2. cross-view top-k consensus fusion and the global unseen-point fill
@@ -24,7 +31,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from geopurify_tpu_torch import resolve_device
-from geopurify_tpu_torch.config import GeoPurifyConfig
+from geopurify_tpu_torch.config import GeoPurifyConfig, SonataConfig
 from geopurify_tpu_torch.data.batch import SceneBatch
 from geopurify_tpu_torch.models.lift import (
     ViewLiftIds,
@@ -33,8 +40,15 @@ from geopurify_tpu_torch.models.lift import (
     fuse_views_indexed,
     lift_view_ids,
 )
+from geopurify_tpu_torch.models.sonata import SonataTeacher
 from geopurify_tpu_torch.models.student import AffinityPredictor
 from geopurify_tpu_torch.models.xdecoder import XDecoderSegModel
+from geopurify_tpu_torch.ops.contrastive import (
+    ContrastivePairs,
+    info_nce_loss,
+    sample_contrastive_pairs_hybrid,
+)
+from geopurify_tpu_torch.ops.infonce import info_nce_loss_fused
 from geopurify_tpu_torch.ops.pooling import geometry_guided_pooling
 from geopurify_tpu_torch.ops.segment import segment_mean
 from geopurify_tpu_torch.ops.sparse_conv import build_neighbor_table
@@ -42,14 +56,19 @@ from geopurify_tpu_torch.ops.sparse_conv import build_neighbor_table
 
 # geopurify_tpu/models/pipeline.py:63
 class GeoPurifyPipeline:
-    """Frozen X-Decoder teacher + student + smoothing, on one device."""
+    """Frozen X-Decoder and Sonata teachers + student + smoothing, on one
+    device."""
 
     def __init__(self, cfg: GeoPurifyConfig, text_embeddings: torch.Tensor,
                  logit_scale: float, teacher_state: Optional[dict] = None,
-                 student_state: Optional[dict] = None, device="cuda"):
+                 student_state: Optional[dict] = None, device="cuda",
+                 sonata_state: Optional[dict] = None):
         """``text_embeddings`` [n_cls + 1, dim] (background last, L2-normed);
-        ``teacher_state`` / ``student_state``: state dicts of the port's
-        modules (``utils.from_jax`` builds them from JAX variables)."""
+        ``teacher_state`` / ``student_state`` / ``sonata_state``: state
+        dicts of the port's modules (``utils.from_jax`` builds them from JAX
+        variables). The X-Decoder and the student keep their zero weights
+        without one; the Sonata teacher is built only from its state (Stage 2
+        never runs it), and ``teacher_point_features`` raises without it."""
         if cfg.xdecoder.lift_backend != "xdecoder":
             raise NotImplementedError("only the xdecoder lift backend is ported")
         self.cfg = cfg
@@ -59,11 +78,17 @@ class GeoPurifyPipeline:
             self.xdecoder.load_state_dict(teacher_state)
         s = cfg.student
         self.student = AffinityPredictor(s.input_dim, s.hidden_dim, s.embed_dim,
-                                         s.num_res_blocks, s.compute_dtype).eval()
+                                         s.num_res_blocks, s.compute_dtype,
+                                         s.bn_momentum).eval()
         if student_state is not None:
             self.student.load_state_dict(student_state)
-        self.xdecoder.to(self.device)
-        self.student.to(self.device)
+        self.sonata = None
+        if sonata_state is not None:
+            self.sonata = build_sonata(cfg.sonata)
+            self.sonata.load_state_dict(sonata_state)
+            self.sonata.to(self.device)
+        for m in (self.xdecoder, self.student):
+            m.to(self.device)
         self.text_embeddings = torch.as_tensor(text_embeddings, dtype=torch.float32,
                                                device=self.device)
         self.logit_scale = float(logit_scale)
@@ -231,6 +256,79 @@ class GeoPurifyPipeline:
         if profile:
             out["stage_seconds"] = stages
         return out
+
+    # ------------------------------------------------------------------
+    # Stage 1: distillation loss
+    # ------------------------------------------------------------------
+
+    # geopurify_tpu/models/pipeline.py:481-497
+    @torch.inference_mode()
+    def teacher_point_features(self, batch: SceneBatch) -> torch.Tensor:
+        """Frozen Sonata features per point, [P, out_channels] f32."""
+        if self.sonata is None:
+            raise ValueError("No sonata params")
+        M = batch.voxel_coords.shape[0]
+        return self.sonata(
+            batch.geom_feats, batch.voxel_coords, batch.voxel_valid,
+            torch.where(batch.point_valid, batch.point2voxel, M), batch.point_valid)
+
+    # geopurify_tpu/models/pipeline.py:499
+    def stage1_loss(self, generator: Optional[torch.Generator], batch: SceneBatch,
+                    f2d: torch.Tensor, f_teacher: torch.Tensor, train: bool = True,
+                    pairs: Optional[ContrastivePairs] = None
+                    ) -> Tuple[torch.Tensor, ContrastivePairs]:
+        """InfoNCE distillation loss of the student; returns (loss, pairs).
+        ``generator`` draws the anchors unless ``pairs`` is given. With
+        ``train`` the student's BatchNorm uses batch moments and updates its
+        running statistics in place. K2 (``info_nce_loss_fused``) runs when
+        ``contrastive.fused_loss`` is set and ``num_anchors`` divides by
+        min(128, A) and min(64, A): its kernels on a CUDA tensor, its plain
+        versions on a CPU one."""
+        cc = self.cfg.contrastive
+        M = batch.voxel_coords.shape[0]
+        if pairs is None:
+            with torch.no_grad():
+                pairs = sample_contrastive_pairs_hybrid(
+                    generator, f_teacher, batch.point_valid, coords=batch.points,
+                    num_anchors=cc.num_anchors, num_macro=cc.num_macro_negatives,
+                    num_micro=cc.num_micro_negatives, spatial_k=cc.spatial_knn_k,
+                    spatial_method=cc.spatial_method,
+                    spatial_radius=cc.spatial_radius)
+        p2v = torch.where(batch.point_valid, batch.point2voxel.long(), M)
+        voxel_sem = segment_mean(f2d.to(torch.float32), p2v, M)
+        voxel_geom = segment_mean(batch.geom_feats.to(torch.float32), p2v, M)
+        voxel_in = torch.cat([voxel_sem, voxel_geom], 1)
+        nbr = build_neighbor_table(batch.voxel_coords, batch.voxel_valid)
+        embed = self.student(voxel_in, nbr, batch.voxel_valid, train=train)
+        embed_pad = torch.cat([embed, embed.new_zeros((1, embed.shape[1]))])
+        p2v_c = torch.clamp(p2v, max=M)
+
+        def sample_embed(idx):
+            return embed_pad[p2v_c[idx.long()]]
+
+        # f32 for both losses: the K2 kernels take f32 only, as the TPU
+        # kernels cast their blocks (a bf16 student's gradient casts back)
+        a = sample_embed(pairs.anchor_idx).float()
+        p = sample_embed(pairs.positive_idx).float()
+        n = sample_embed(pairs.negative_idx.reshape(-1)).reshape(
+            cc.num_anchors, cc.num_negatives, -1).float()
+        A = cc.num_anchors
+        if cc.fused_loss and A % min(128, A) == 0 and A % min(64, A) == 0:
+            loss = info_nce_loss_fused(a, p, n, pairs.anchor_valid, cc.temperature)
+        else:
+            loss = info_nce_loss(a, p, n, pairs.anchor_valid, cc.temperature)
+        return loss, pairs
+
+
+def build_sonata(sc: SonataConfig) -> SonataTeacher:
+    """The frozen Sonata teacher of ``cfg.sonata``, on the CPU, in eval mode."""
+    return SonataTeacher(
+        in_channels=sc.in_channels, enc_depths=tuple(sc.enc_depths),
+        enc_channels=tuple(sc.enc_channels), enc_num_head=tuple(sc.enc_num_head),
+        enc_patch_size=tuple(sc.enc_patch_size), upcast_levels=sc.upcast_levels,
+        stem_kernel=sc.stem_kernel, pool_reduce=sc.pool_reduce,
+        aux_norm_affine_only=(sc.norm == "bn_folded"),
+        dtype=torch.bfloat16 if sc.dtype == "bfloat16" else torch.float32).eval()
 
 
 def _mark(stages: Optional[dict], name: str, t0: float, device) -> None:

@@ -128,3 +128,64 @@ def nearest_donor(
         donor_full[qpos] = donor.to(torch.int32)
         filled[qpos] = True
     return donor_full, filled
+
+
+def _ordered_key(x: torch.Tensor) -> torch.Tensor:
+    """int64 keys with the order of the f32 values ``x`` in the high 32 bits
+    (the sign-magnitude bits flipped into two's-complement order), so that
+    ``key << 32 | column`` sorts by (value, column)."""
+    i = x.to(torch.float32).contiguous().view(torch.int32).to(torch.int64)
+    return torch.where(i < 0, i ^ 0x7FFFFFFF, i) << 32
+
+
+# geopurify_tpu/ops/knn.py:150
+def _chunked_topk_min(d2: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` smallest of each row of ``d2`` [T, C] f32, ascending, ties
+    broken by the lowest column: (values [T, k], columns [T, k] int64). One
+    ``torch.topk`` over (value, column) int64 keys; the JAX version's chunked
+    top-k union and ``approx_min_k`` are TPU speed paths to the same set."""
+    C = d2.shape[1]
+    cols = torch.arange(C, device=d2.device, dtype=torch.int64)
+    key = _ordered_key(d2) | cols[None, :]
+    sel = torch.topk(key, k, dim=1, largest=False, sorted=True).values
+    col = sel & 0xFFFFFFFF
+    return torch.gather(d2, 1, col), col
+
+
+# geopurify_tpu/ops/knn.py:561
+def knn_anchors_grid(
+    points: torch.Tensor,      # [N, 3] float coords
+    valid: torch.Tensor,       # [N] bool
+    anchor_idx: torch.Tensor,  # [A] query subset (self excluded by id)
+    k: int,
+    radius: float = 0.3,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact kNN of the anchors over float coords: (d2 [A, k] f32, +inf in
+    unfilled slots; idx [A, k] int32, 0 there), in (d2, id) order. The
+    contract of the JAX version (knn.py:577-588): equal to a brute-force
+    search of ``points[anchor_idx]`` over ``points`` with the anchor's own id
+    excluded, up to equal-distance ties. Here an anchor-tiled brute force
+    computes d2 from coordinate differences in f32 (no matmul, so no TF32);
+    ``radius`` tunes the JAX version's pruning and has no counterpart."""
+    N = points.shape[0]
+    A = anchor_idx.shape[0]
+    dev = points.device
+    cf = points.to(torch.float32)
+    aidx = anchor_idx.to(torch.int64)
+    ids = torch.arange(N, device=dev, dtype=torch.int64)
+    kk = min(k, N)
+    T = max(1, min(A, _TILE_ELEMS // max(N, 1)))
+    dists = torch.full((A, k), float("inf"), dtype=torch.float32, device=dev)
+    idx = torch.zeros((A, k), dtype=torch.int32, device=dev)
+    for lo in range(0, A, T):
+        qid = aidx[lo:lo + T]
+        q = cf[qid]
+        d2 = (q[:, None, 0] - cf[None, :, 0]) ** 2
+        d2 += (q[:, None, 1] - cf[None, :, 1]) ** 2
+        d2 += (q[:, None, 2] - cf[None, :, 2]) ** 2
+        bad = (~valid)[None, :] | (ids[None, :] == qid[:, None])
+        d, i = _chunked_topk_min(d2.masked_fill_(bad, float("inf")), kk)
+        fin = torch.isfinite(d)
+        dists[lo:lo + T, :kk] = d
+        idx[lo:lo + T, :kk] = torch.where(fin, i, 0).to(torch.int32)
+    return dists, idx

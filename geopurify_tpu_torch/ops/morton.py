@@ -20,6 +20,16 @@ def part1by2(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+# geopurify_tpu/ops/morton.py:24
+def morton_code(coords: torch.Tensor, order: int = 0) -> torch.Tensor:
+    """30-bit Morton code of non-negative int coords (clamped to 10 bits an
+    axis); ``order`` 0 = (x, y, z), 1 = (y, x, z) — the z / z-trans pair."""
+    c = torch.clamp(coords, 0, (1 << 10) - 1).to(torch.int32)
+    if order == 1:
+        c = c[:, [1, 0, 2]]
+    return part1by2(c[:, 0]) | (part1by2(c[:, 1]) << 1) | (part1by2(c[:, 2]) << 2)
+
+
 # geopurify_tpu/ops/morton.py:40
 def hilbert_code(coords: torch.Tensor, bits: int = 10) -> torch.Tensor:
     """3-D Hilbert index of non-negative int coords (clamped to ``bits``/axis),

@@ -56,30 +56,70 @@ def build_neighbor_table(
     return table.T.contiguous().to(torch.int32)
 
 
+def _mm32(a, b):
+    """a @ b with f32 accumulation (bf16 operands are exact in f32)."""
+    return a.to(torch.float32) @ b.to(torch.float32)
+
+
+def _center(K: int):
+    # the centre tap of a full 3^3 / 5^3 stencil is the identity on valid rows
+    return K // 2 if K in (27, 125) else None
+
+
 # geopurify_tpu/ops/sparse_conv.py:116 (_conv_taps) + :160 (_conv_core)
 def _conv_core(features, neighbor_idx, weights, valid):
     M, Cin = features.shape
     K = weights.shape[0]
     f_pad = torch.cat([features, features.new_zeros((1, Cin))], dim=0)
     nbr = neighbor_idx.long()
-    # the centre tap of a full 3^3 / 5^3 stencil is the identity on valid
-    # rows: one direct matmul, then the other taps in product order
-    center = K // 2 if K in (27, 125) else None
+    center = _center(K)
     if center is None:
         acc = torch.zeros((M, weights.shape[2]), dtype=torch.float32,
                           device=features.device)
-        taps = range(K)
     else:
         acc = _mm32(features, weights[center])
-        taps = [k for k in range(K) if k != center]
-    for k in taps:
-        acc = acc + _mm32(f_pad[nbr[:, k]], weights[k])
+    for k in range(K):
+        if k != center:
+            acc = acc + _mm32(f_pad[nbr[:, k]], weights[k])
     return torch.where(valid[:, None], acc, 0.0)
 
 
-def _mm32(a, b):
-    """a @ b with f32 accumulation (bf16 operands are exact in f32)."""
-    return a.to(torch.float32) @ b.to(torch.float32)
+class _Conv3(torch.autograd.Function):
+    """The tap-scan conv with a backward that re-gathers: autograd of the
+    plain loop would save every gathered [M, Cin] tap (26 taps x 9 convs x
+    134 MB at M = 65536 for the student's training step). This saves only
+    the input and the table; dX scatters back through ``index_add_``. The
+    JAX package gets the same from XLA (sparse_conv.py:160, custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, features, neighbor_idx, weights, valid):
+        ctx.save_for_backward(features, neighbor_idx, weights, valid)
+        return _conv_core(features, neighbor_idx, weights, valid)
+
+    @staticmethod
+    def backward(ctx, grad):
+        features, neighbor_idx, weights, valid = ctx.saved_tensors
+        M, Cin = features.shape
+        K = weights.shape[0]
+        g = torch.where(valid[:, None], grad.to(torch.float32), 0.0)
+        nbr = neighbor_idx.long()
+        f_pad = torch.cat([features, features.new_zeros((1, Cin))], dim=0)
+        need_x, need_w = ctx.needs_input_grad[0], ctx.needs_input_grad[2]
+        dx = torch.zeros((M + 1, Cin), dtype=torch.float32, device=g.device) if need_x else None
+        dw = torch.empty(weights.shape, dtype=torch.float32, device=g.device) if need_w else None
+        center = _center(K)
+        for k in range(K):
+            if need_w:
+                tap = features if k == center else f_pad[nbr[:, k]]
+                dw[k] = _mm32(tap.T, g)
+            if need_x:
+                gx = _mm32(g, weights[k].T)
+                if k == center:
+                    dx[:M] += gx
+                else:
+                    dx.index_add_(0, nbr[:, k], gx)
+        return (dx[:M].to(features.dtype) if need_x else None, None,
+                dw.to(weights.dtype) if need_w else None, None)
 
 
 # geopurify_tpu/ops/sparse_conv.py:376
@@ -90,7 +130,7 @@ def sparse_conv3(
     valid: torch.Tensor,         # [M] bool
     bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    out = _conv_core(features, neighbor_idx, weights, valid)
+    out = _Conv3.apply(features, neighbor_idx, weights, valid)
     if bias is not None:
         out = torch.where(valid[:, None], out + bias[None, :].float(), 0.0)
     return out.to(features.dtype)
@@ -108,3 +148,15 @@ def sparse_conv1(
     if bias is not None:
         out = out + bias[None, :].float()
     return torch.where(valid[:, None], out, 0.0).to(features.dtype)
+
+
+# geopurify_tpu/ops/sparse_conv.py:420
+def masked_batch_stats(x: torch.Tensor, valid: torch.Tensor):
+    """(mean, var) over the valid rows only, biased variance
+    max(E[x^2] - E[x]^2, 0); differentiable."""
+    v = valid[:, None].to(torch.float32)
+    count = torch.clamp(v.sum(), min=1.0)
+    x32 = x.to(torch.float32)
+    mean = (x32 * v).sum(0) / count
+    var = torch.clamp((x32 * x32 * v).sum(0) / count - mean * mean, min=0.0)
+    return mean, var

@@ -21,7 +21,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
-SOURCES = ("band_matmul",)
+SOURCES = ("band_matmul", "infonce")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

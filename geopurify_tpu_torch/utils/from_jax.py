@@ -9,9 +9,13 @@ for the port's modules, whose parameter names mirror the Flax names:
   [C, 1, k, k]);
 - sparse-conv ``kernel`` [27, Cin, Cout] stays as it is;
 - LayerNorm / GroupNorm / BatchNorm ``scale`` -> ``weight``;
-- FocalNet's ``nn.scan`` stages stack their blocks on a leading depth axis
-  under ``layers{i}_blocks/block`` (geopurify_tpu/models/focalnet.py:286-305):
-  they unstack to ``layers{i}_blocks.{d}``.
+- FocalNet's and Sonata's ``nn.scan`` stages stack their blocks on a
+  leading depth axis under ``layers{i}_blocks/block`` / ``stage{s}_blocks/
+  block`` (geopurify_tpu/models/focalnet.py:286-305, sonata.py:274-284):
+  they unstack to ``..._blocks.{d}``;
+- raw parameters (Sonata's ``cpe_kernel`` / ``stem_kernel_w``, the text
+  tower's ``positional_embedding``, ``lang_proj``, ``logit_scale``, an
+  Embed's ``embedding``) keep their name and layout.
 """
 
 from __future__ import annotations
@@ -59,11 +63,15 @@ def _state_dict(tree) -> Dict[str, torch.Tensor]:
     return out
 
 
-def xdecoder_from_jax(variables) -> Dict[str, torch.Tensor]:
-    """State dict for ``models.xdecoder.XDecoderSegModel`` from the JAX
-    ``XDecoderSegModel`` variables (``{"params": ...}`` or the bare params)."""
-    params = variables["params"] if "params" in variables else variables
-    return _state_dict(params)
+def params_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """State dict of a port module whose JAX variables hold parameters only
+    (``{"params": ...}`` or the bare params): ``models.xdecoder.
+    XDecoderSegModel``, ``models.sonata.SonataTeacher`` and
+    ``models.lang.LanguageEncoder``."""
+    return _state_dict(variables["params"] if "params" in variables else variables)
+
+
+xdecoder_from_jax = sonata_from_jax = lang_from_jax = params_from_jax
 
 
 def student_from_jax(variables) -> Dict[str, torch.Tensor]:

@@ -129,21 +129,27 @@ def test_lift_scene_matches_jax():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports without JAX or the JAX package."""
+    """Every module of the port imports without JAX or the JAX package,
+    the Stage-1 modules included."""
+    stage1 = ("ops.infonce", "ops.contrastive", "ops.voxelize", "models.sonata",
+              "models.lang", "data.synthetic", "run.optim", "run.train",
+              "utils.checkpoint", "utils.profiling")
     code = (
         "import importlib, pkgutil, sys\n"
         "import geopurify_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'geopurify_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        f"missing = [m for m in {stage1!r} if 'geopurify_tpu_torch.' + m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'geopurify_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'geopurify_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok', len([n for n in sys.modules if n.startswith('geopurify_tpu_torch')]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[1]) >= 15
+    assert int(out.stdout.split()[1]) >= 33
 
 
 def test_default_device_without_cuda_raises(monkeypatch):
@@ -151,3 +157,13 @@ def test_default_device_without_cuda_raises(monkeypatch):
     cfg = _apply_dict(TConfig(), dataclasses.asdict(smoke_cfg()))
     with pytest.raises(RuntimeError, match="cuda"):
         TPipeline(cfg, np.zeros((5, 16), np.float32), 20.0)
+
+
+def test_sonata_teacher_only_from_its_state():
+    """Stage 2 builds no Sonata teacher; Stage 1 without its weights raises
+    as the JAX pipeline does."""
+    cfg = _apply_dict(TConfig(), dataclasses.asdict(smoke_cfg()))
+    tp = TPipeline(cfg, np.zeros((5, 16), np.float32), 20.0, device="cpu")
+    assert tp.sonata is None
+    with pytest.raises(ValueError, match="No sonata params"):
+        tp.teacher_point_features(None)
