@@ -1,13 +1,14 @@
 """geopurify_tpu_torch — the PyTorch / CUDA port of geopurify_tpu.
 
 Stage-2 inference (``models.pipeline.GeoPurifyPipeline.evaluate_scene``)
-and Stage-1 training (``GeoPurifyPipeline.stage1_loss``, ``run.train``)
-for one NVIDIA H100. The JAX package ``geopurify_tpu`` stays the reference:
+and its validation entry over on-disk scenes (``run.validate``, through the
+data layer ``data.loaders``), and Stage-1 training
+(``GeoPurifyPipeline.stage1_loss``, ``run.train``), for one NVIDIA H100. The JAX package ``geopurify_tpu`` stays the reference:
 every module here cites its JAX counterpart by file:line, and the tests in
 ``tests/test_torch_port_*.py`` hold the two against each other on the CPU.
 
-This package imports torch, numpy and pyyaml only — never jax, flax or
-anything of geopurify_tpu.
+This package imports torch, numpy and pyyaml (the data layer also scipy
+and Pillow) — never jax, flax or anything of geopurify_tpu.
 """
 
 from __future__ import annotations

@@ -154,8 +154,25 @@ def fill_unseen_points(fused, points, count, point_valid):
 
 
 # geopurify_tpu/models/lift.py:384
-def fill_unseen_points_voxel(*args, **kwargs):
-    """The voxel-resolution fill the JAX package uses at P >= 2^19 is not
-    ported yet (ROADMAP Queue 1)."""
-    raise NotImplementedError(
-        "fill_unseen_points_voxel (P >= 2**19 scenes) is not ported yet")
+def fill_unseen_points_voxel(fused, count, point_valid, point2voxel,
+                             voxel_coords, voxel_valid):
+    """Voxel-resolution unseen fill for scenes of P >= 2^19 points: each
+    voxel's mean fused feature over its seen points; a valid voxel with no
+    seen point takes the mean of its nearest seen voxel; an unseen point
+    takes its voxel's (filled) mean. The donor search is the exact tiled
+    brute force of ``ops/knn.nearest_fill`` on the integer voxel grid, where
+    the JAX version prunes it with a Hilbert-tiled grid (``nearest_fill_grid``,
+    :418): both find the nearest seen voxel; between seen voxels at one
+    distance the port takes the lowest id, where the JAX order is open."""
+    M = voxel_coords.shape[0]
+    seen = count > 0
+    p2v = torch.where(point_valid, point2voxel.long(), M)
+    vox_seen_cnt = segment_sum(seen.to(torch.float32)[:, None], p2v, M)[:, 0]
+    vox_seen = vox_seen_cnt > 0
+    masked = torch.where(seen[:, None], fused, 0.0)
+    vox_feat = segment_sum(masked, p2v, M) / torch.clamp(vox_seen_cnt, min=1.0)[:, None]
+    filled_vox = nearest_fill(vox_feat, voxel_coords.to(torch.float32),
+                              vox_seen & voxel_valid, voxel_valid)
+    filled_vox = torch.cat([filled_vox, filled_vox.new_zeros((1, fused.shape[1]))])
+    donated = filled_vox[torch.clamp(p2v, max=M)]
+    return torch.where(seen[:, None], fused, donated)

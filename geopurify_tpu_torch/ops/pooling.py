@@ -19,7 +19,6 @@ import torch
 from geopurify_tpu_torch.ops.band import banded_window_matmul
 from geopurify_tpu_torch.ops.knn import knn_self_grid
 from geopurify_tpu_torch.ops.morton import hilbert_code
-from geopurify_tpu_torch.ops.segment import segment_sum
 
 RES_GROUP = 8
 
@@ -216,16 +215,22 @@ def iterate_pooling_banded(op: BandedOperator, feats: torch.Tensor,
     if tail:
         parts.append((op.grp_col[head:], op.grp_w[head:], op.grp_row[head:]))
 
+    # the residual's [groups, G, C] f32 gather in chunks of at most 2^27
+    # elements (512 MiB): the preset residual (2^21 edges) at C = 512 would
+    # gather 4 GiB a round at once
+    chunk = max(1, (1 << 27) // (RES_GROUP * C))
     f = feats.to(S.dtype)
     for _ in range(num_iterations):
         banded = banded_window_matmul(S, op.starts, f, band=band, row_tile=row_tile)
-        resid = torch.zeros((M, C), dtype=torch.float32, device=f.device)
-        if Rg_cap:
-            for cols, w, grow in parts:
-                g = f[cols].to(torch.float32)                 # [Rg, G, C]
-                seg = torch.bmm(w[:, None, :], g)[:, 0]        # [Rg, C]
-                resid = resid + segment_sum(seg, grow, M)
-        f = (banded + resid).to(S.dtype)
+        # segment_sum of every chunk of every part into one accumulator;
+        # row M takes the padding groups (row id M)
+        resid = torch.zeros((M + 1, C), dtype=torch.float32, device=f.device)
+        for cols, w, grow in parts if Rg_cap else ():
+            for lo in range(0, cols.shape[0], chunk):
+                g = f[cols[lo:lo + chunk]].to(torch.float32)            # [n, G, C]
+                seg = torch.bmm(w[lo:lo + chunk, None, :], g)[:, 0]    # [n, C]
+                resid.index_add_(0, grow[lo:lo + chunk].clamp(max=M), seg)
+        f = (banded + resid[:M]).to(S.dtype)
     return f.to(feats.dtype)
 
 

@@ -1,5 +1,6 @@
-"""Voxel quantization: the host path the synthetic scenes use, and the
-static-shape device path of the Sonata teacher's grid pooling.
+"""Voxel quantization: the host path of the data loader and the synthetic
+scenes, and the static-shape device path of the Sonata teacher's grid
+pooling.
 
 Port of geopurify_tpu/ops/voxelize.py. The host path (numpy) dedups
 floored coordinates by their FNV-1a 64-bit hash, first occurrence per voxel
@@ -50,26 +51,73 @@ class VoxelizeResult(NamedTuple):
 
 # geopurify_tpu/ops/voxelize.py:94
 class Voxelizer:
-    """Floor-quantize at ``voxel_size`` (min coord shifted to 0) + dedup.
-    The JAX version's random rigid augmentation is off by default and is
-    not part of this port."""
+    """Random rigid augmentation + floor-quantize + dedup.
 
-    def __init__(self, voxel_size: float = 1.0):
+    Augmentation (``use_augmentation``, the training loader's): a random
+    rotation about each axis within its bound, composed in shuffled order,
+    and a uniform scale jitter on 1 / voxel_size, drawn from ``rng`` with the
+    JAX version's calls in its order, then a shift so the min coord sits at
+    0. Normal channels feats[:, 3:6] rotate with the points when feats has
+    more than 6 channels, as in the JAX version."""
+
+    def __init__(
+        self,
+        voxel_size: float = 1.0,
+        use_augmentation: bool = False,
+        scale_augmentation_bound: Optional[Tuple[float, float]] = None,
+        rotation_augmentation_bound: Optional[Tuple] = None,
+        rng: Optional[np.random.Generator] = None,
+    ):
         self.voxel_size = voxel_size
+        self.use_augmentation = use_augmentation
+        self.scale_augmentation_bound = scale_augmentation_bound
+        self.rotation_augmentation_bound = rotation_augmentation_bound
+        self.rng = rng or np.random.default_rng()
 
+    # geopurify_tpu/ops/voxelize.py:118
+    @staticmethod
+    def _axis_rot(axis: np.ndarray, theta: float) -> np.ndarray:
+        """Rodrigues rotation about a unit axis."""
+        axis = axis / np.linalg.norm(axis)
+        K = np.cross(np.eye(3), axis)
+        return np.eye(3) + np.sin(theta) * K + (1 - np.cos(theta)) * (K @ K)
+
+    # geopurify_tpu/ops/voxelize.py:125
+    def get_transformation_matrix(self) -> Tuple[np.ndarray, np.ndarray]:
+        vox, rot = np.eye(4), np.eye(4)
+        rot3 = np.eye(3)
+        if self.use_augmentation and self.rotation_augmentation_bound is not None:
+            mats = []
+            for axis_ind, bound in enumerate(self.rotation_augmentation_bound):
+                theta = self.rng.uniform(*bound) if bound is not None else 0.0
+                axis = np.zeros(3)
+                axis[axis_ind] = 1.0
+                mats.append(self._axis_rot(axis, theta))
+            self.rng.shuffle(mats)
+            rot3 = mats[0] @ mats[1] @ mats[2]
+        rot[:3, :3] = rot3
+        scale = 1.0 / self.voxel_size
+        if self.use_augmentation and self.scale_augmentation_bound is not None:
+            scale *= self.rng.uniform(*self.scale_augmentation_bound)
+        np.fill_diagonal(vox[:3, :3], scale)
+        return vox, rot
+
+    # geopurify_tpu/ops/voxelize.py:144
     def voxelize(self, coords: np.ndarray, feats: np.ndarray,
                  labels: Optional[np.ndarray] = None) -> VoxelizeResult:
         if coords.ndim != 2 or coords.shape[1] != 3:
             raise ValueError(f"coords must be [N, 3], got {coords.shape}")
-        vox = np.eye(4)
-        np.fill_diagonal(vox[:3, :3], 1.0 / self.voxel_size)
+        M_v, M_r = self.get_transformation_matrix()
+        rigid = (M_r @ M_v) if self.use_augmentation else M_v
         homo = np.hstack([coords, np.ones((coords.shape[0], 1), dtype=coords.dtype)])
-        coords_aug = np.floor(homo @ vox.T[:, :3])
+        coords_aug = np.floor(homo @ rigid.T[:, :3])
         coords_aug = np.floor(coords_aug - coords_aug.min(0))
         inds, inds_reverse = sparse_quantize_np(coords_aug)
+        vox_feats = feats[inds].copy()
+        if vox_feats.shape[1] > 6:
+            vox_feats[:, 3:6] = vox_feats[:, 3:6] @ M_r[:3, :3].T
         vox_labels = labels[inds] if labels is not None else None
-        return VoxelizeResult(coords_aug[inds], feats[inds].copy(), vox_labels,
-                              inds_reverse, inds)
+        return VoxelizeResult(coords_aug[inds], vox_feats, vox_labels, inds_reverse, inds)
 
 
 class DeviceVoxels(NamedTuple):

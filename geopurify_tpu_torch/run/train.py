@@ -9,9 +9,9 @@ anchor generator's state (``utils/checkpoint.py``); ``train.resume``
 continues from them.
 
 The JAX trainer's data parallelism (``parallel.dp`` > 1, SyncBN), the
-teacher cache, the precomputed fused features and real datasets wait for
-the port's data layer and ``torch.distributed`` (ROADMAP Queue 1 items 6
-and 7): they raise ``NotImplementedError`` here. ``dp = -1`` (all
+teacher cache, the precomputed fused features and real datasets (the data
+layer exists, ``data/loaders.SceneDataset``, but is not wired in yet) wait
+in ROADMAP Queue 1: they raise ``NotImplementedError`` here. ``dp = -1`` (all
 devices) resolves to one device.
 
 Usage:
@@ -112,21 +112,35 @@ def _zero_(module: torch.nn.Module) -> None:
 
 
 # geopurify_tpu/run/train.py:119
-def build_pipeline(cfg: GeoPurifyConfig, generator: torch.Generator, device="cuda"):
+def build_pipeline(cfg: GeoPurifyConfig, generator: torch.Generator, device="cuda",
+                   require_teachers: bool = False, with_sonata: bool = True):
     """The pipeline with frozen teachers and class-name text embeddings.
 
     The language tower is initialised from ``generator`` (a CPU generator)
     and embeds the class prompts. Without released checkpoints the
     X-Decoder and Sonata teachers are zero stand-ins, as in the JAX trainer
-    when ``xdecoder.ckpt`` / ``sonata.ckpt`` are unset (fine for smoke runs,
-    meaningless on real data); converting the released checkpoints is not
-    ported yet."""
+    when ``xdecoder.ckpt`` / ``sonata.ckpt`` are unset: fine for smoke runs,
+    meaningless on real data, so ``require_teachers`` (the real-data entry
+    points) logs the JAX package's warnings. Converting the released
+    checkpoints is not ported yet. ``with_sonata=False`` leaves the Sonata
+    teacher out (Stage 2 never runs it)."""
     if cfg.xdecoder.ckpt or cfg.sonata.ckpt:
         raise NotImplementedError(
             "converting the released X-Decoder / Sonata checkpoints is not ported "
-            "yet (ROADMAP Queue 1 item 7); unset xdecoder.ckpt and sonata.ckpt")
+            "yet (ROADMAP Queue 1); unset xdecoder.ckpt and sonata.ckpt")
     if cfg.xdecoder.lift_backend != "xdecoder":
         raise NotImplementedError("only the xdecoder lift backend is ported")
+    if require_teachers:
+        log.warning(
+            "REAL-DATA RUN WITH UNINITIALIZED 2D TEACHER: xdecoder.ckpt is not "
+            "set, so the frozen X-Decoder teacher is all zeros and every lifted "
+            "feature (and any mIoU built on it) is meaningless. Set "
+            "xdecoder.ckpt=/path/to/xdecoder_focall_last.pt.")
+        if with_sonata:
+            log.warning(
+                "REAL-DATA RUN WITH UNINITIALIZED 3D TEACHER: sonata.ckpt is "
+                "not set — Stage-1 distillation targets are random. Set "
+                "sonata.ckpt=/path/to/sonata.pth (facebook/sonata release).")
     dev = resolve_device(device)
     t = cfg.text
     tk = build_tokenizer(t.tokenizer_vocab, t.context_length, t.vocab_size)
@@ -138,10 +152,13 @@ def build_pipeline(cfg: GeoPurifyConfig, generator: torch.Generator, device="cud
                              use_templates=t.prompt_eng, template=t.prompt_template,
                              device=dev)
     logit_scale = float(lang.scale().detach())
-    sonata = build_sonata(cfg.sonata)
-    _zero_(sonata)
+    sonata_state = None
+    if with_sonata:
+        sonata = build_sonata(cfg.sonata)
+        _zero_(sonata)
+        sonata_state = sonata.state_dict()
     pipeline = GeoPurifyPipeline(cfg, text, logit_scale, device=dev,
-                                 sonata_state=sonata.state_dict())
+                                 sonata_state=sonata_state)
     _zero_(pipeline.xdecoder)
     return pipeline
 
@@ -151,7 +168,7 @@ def _dp(cfg: GeoPurifyConfig) -> int:
     if dp not in (-1, 1):
         raise NotImplementedError(
             f"parallel.dp={dp}: data parallelism with SyncBN over torch.distributed "
-            "is not ported yet (ROADMAP Queue 1 item 7); the port trains "
+            "is not ported yet (ROADMAP Queue 1); the port trains "
             "on one device")
     return 1
 
@@ -176,10 +193,11 @@ def main(argv=None) -> Optional[TrainState]:
                        (args.teacher_cache, "--teacher-cache (data layer, run/precompute.py)"),
                        (args.fused_features, "--fused-features (data layer)")):
         if flag:
-            raise NotImplementedError(f"{item} is not ported yet (ROADMAP Queue 1 item 7)")
+            raise NotImplementedError(f"{item} is not ported yet (ROADMAP Queue 1)")
     if not args.synthetic:
         raise NotImplementedError(
-            "real datasets wait for the port's data layer (ROADMAP Queue 1 item 6); "
+            "real datasets (data/loaders.SceneDataset in the trainer) are not wired in "
+            "yet (ROADMAP Queue 1); "
             "pass --synthetic")
     cfg = load_config(args.preset, overrides=args.overrides, yaml_path=args.config)
     if args.epochs:

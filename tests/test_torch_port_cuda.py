@@ -1,7 +1,10 @@
 """Kernels K1 and K2 on the card, each against its plain PyTorch version.
 
 K1 at awkward shapes: ragged row counts, C below 32, a band that is not a
-multiple of the kernel's chunk, windows clamped at the last row. K2 (fused
+multiple of the kernel's chunk, windows clamped at the last row; every
+column instantiation (C = 64, 100, 200 and 512, the last as two column
+slabs of 256); and one S of more than 2^31 elements, whose row offsets need
+64 bits. K2 (fused
 InfoNCE forward and backward) at E = 8, 16, 128, NEG from 1 to 63
 and anchor counts that are not a multiple of the warps of a block. Then
 each wrapper's refusals. Marked ``cuda``; skipped where no card is present.
@@ -27,6 +30,11 @@ def card():
     (700, 700, 256, 19, 128),      # ragged last block, C < 32
     (1000, 1200, 200, 32, 256),    # band % 64 != 0, R < M
     (4096, 4096, 1024, 1, 2048),   # one column
+    (3000, 4000, 512, 64, 256),    # the 64-column instantiation, ragged rows
+    (1500, 2048, 256, 100, 256),   # the 128-column instantiation
+    (2048, 4096, 1024, 200, 1024), # 256 columns a block (scannet200's classes)
+    (1100, 2048, 520, 512, 512),   # two column slabs (feature space), ragged
+    (262144, 262144, 8200, 19, 2048),  # R * band > 2^31
 ])
 def test_k1_matches_plain_version(card, R, M, band, C, row_tile):
     g = torch.Generator(device=card).manual_seed(R + C)
@@ -50,7 +58,7 @@ def test_k1_refuses_what_it_does_not_take(card):
     S = torch.zeros((256, 128), dtype=torch.bfloat16, device=card)
     starts = torch.zeros((1,), dtype=torch.int32, device=card)
     with pytest.raises(ValueError):
-        banded_window_matmul(S, starts, torch.zeros((256, 33), dtype=torch.bfloat16,
+        banded_window_matmul(S, starts, torch.zeros((256, 513), dtype=torch.bfloat16,
                                                     device=card), band=128, row_tile=2048)
     with pytest.raises(TypeError):
         banded_window_matmul(S.float(), starts, torch.zeros((256, 8), device=card),

@@ -130,10 +130,12 @@ def test_lift_scene_matches_jax():
 
 def test_port_imports_no_jax():
     """Every module of the port imports without JAX or the JAX package,
-    the Stage-1 modules included."""
+    the Stage-1 modules and the data layer and validation entry included."""
     stage1 = ("ops.infonce", "ops.contrastive", "ops.voxelize", "models.sonata",
               "models.lang", "data.synthetic", "run.optim", "run.train",
-              "utils.checkpoint", "utils.profiling")
+              "utils.checkpoint", "utils.profiling", "data.loaders", "data.ply",
+              "data.cameras", "data.augment", "ops.projection", "utils.metrics",
+              "utils.visualization", "run.validate")
     code = (
         "import importlib, pkgutil, sys\n"
         "import geopurify_tpu_torch as p\n"
@@ -149,7 +151,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[1]) >= 33
+    assert int(out.stdout.split()[1]) >= 41
 
 
 def test_default_device_without_cuda_raises(monkeypatch):
