@@ -8,22 +8,59 @@ Port of the TPU kernel geopurify_tpu/ops/pallas_band.py::banded_window_matmul
 in f32 from bf16 ``S`` and ``F``, for any C up to 512 (the class counts of
 logit-space smoothing and the 512 channels of feature-space smoothing). On
 a CUDA tensor the wrapper launches the hand-written Hopper kernel
-``csrc/band_matmul.cu`` or raises: the instantiation of 32, 64, 128 or 256
-columns that holds C reads each S element once; a wider F runs as column
-slabs of 256 (see the source note). On a CPU tensor it runs
-``banded_window_matmul_ref``, the plain gather + batched-matmul form of
-geopurify_tpu/ops/pooling.py:488-495.
+``csrc/band_matmul.cu`` or raises: up to 32 columns the WMMA kernel, above
+that the wgmma + TMA kernel at the column count ``_plan`` picks (see the
+source note). On a CPU tensor it runs ``banded_window_matmul_ref``, the
+plain gather + batched-matmul form of geopurify_tpu/ops/pooling.py:488-495.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
-_KERNEL_ROWS = 128        # the output's row padding (every BM in the source divides it)
-_KERNEL_COLS = (32, 64, 128, 256)   # the instantiations' column counts
+_KERNEL_ROWS = 128        # rows a block, and the output's row padding
 _MAX_COLS = 512
+_WMMA_COLS = 32           # C <= 32: the WMMA kernel, one block per 128 rows
+_SLAB_COLS = 256          # the widest wgmma tile; a wider C runs as slabs
+_CLUSTER_ROWS = 256       # two blocks of one cluster share a window
+
+# The wgmma kernel's column counts (multiples of 8, the wgmma N step), each
+# at most 1.25x the smallest C it serves, and exact at the presets' class
+# counts 40, 80, 160 and 200; not 112 or 120, for which ptxas spills.
+# csrc/wgmma_bf16.cuh is generated from this tuple
+# (python -m geopurify_tpu_torch.utils.gen_wgmma).
+WGMMA_COLS = (40, 48, 56, 64, 80, 96, 104, 128, 144, 160, 200, 232, 256)
+
+
+class Plan(NamedTuple):
+    """How the wrapper launches K1 for C columns."""
+    kernel: str     # "wmma" (C <= 32) or "wgmma"
+    bn: int         # columns a block computes
+    ldf: int        # row stride of the output: slabs * bn
+    slabs: int      # column slabs of bn, side by side
+    cluster: int    # blocks a cluster (2: one F window multicast to both)
+
+
+def _plan(C: int, row_tile: int) -> Plan:
+    """The instantiation, tile width, padding, slabs and cluster for C.
+
+    C <= 32 runs the WMMA kernel on 32 columns. Above that C is split into
+    ceil(C / 256) slabs of equal width, and each slab is padded to the
+    smallest entry of ``WGMMA_COLS`` that holds it: at most 25% more
+    columns than ceil(C / slabs). Two blocks of 128 rows form a cluster
+    that shares each F chunk when both lie in one row tile
+    (``row_tile % 256 == 0``)."""
+    if not 0 < C <= _MAX_COLS:
+        raise ValueError(f"C={C}: the kernel takes 1 to {_MAX_COLS} columns")
+    if C <= _WMMA_COLS:
+        return Plan("wmma", _WMMA_COLS, _WMMA_COLS, 1, 1)
+    slabs = -(-C // _SLAB_COLS)
+    bn = next(b for b in WGMMA_COLS if b >= -(-C // slabs))
+    cluster = 2 if row_tile % _CLUSTER_ROWS == 0 else 1
+    return Plan("wgmma", bn, slabs * bn, slabs, cluster)
 
 
 def banded_window_matmul_ref(S: torch.Tensor, starts: torch.Tensor,
@@ -61,27 +98,36 @@ def banded_window_matmul(S: torch.Tensor, starts: torch.Tensor,
     if S.shape[1] != band or band % 8:
         raise ValueError(f"S must be [R, band] with band % 8 == 0, got "
                          f"{tuple(S.shape)}, band={band}")
-    if not 0 < C <= _MAX_COLS:
-        raise ValueError(f"C={C}: the kernel takes 1 to {_MAX_COLS} columns")
     if row_tile % _KERNEL_ROWS:
         raise ValueError(f"row_tile={row_tile} must be a multiple of {_KERNEL_ROWS}")
+    plan = _plan(C, row_tile)
     n_t = -(-R // row_tile)
     if starts.shape != (n_t,):
         raise ValueError(f"starts must be [{n_t}], got {tuple(starts.shape)}")
     if not (f.is_cuda and starts.is_cuda and S.device == f.device == starts.device):
         raise ValueError("S, starts and f must lie on one CUDA device")
     S = S.contiguous()
+    if S.data_ptr() % 16:                   # TMA reads from 16-byte aligned rows
+        S = S.clone()
     starts = starts.to(torch.int32).contiguous()
-    cn = next((n for n in _KERNEL_COLS if C <= n), _KERNEL_COLS[-1])
-    ldf = -(-C // cn) * cn                  # column slabs of cn side by side
-    fp = f if C == ldf else torch.nn.functional.pad(f, (0, ldf - C))
-    fp = fp.contiguous()
+    f = f.contiguous()
     Rpad = -(-R // _KERNEL_ROWS) * _KERNEL_ROWS
-    out = torch.empty((Rpad, ldf), dtype=torch.float32, device=S.device)
+    out = torch.empty((Rpad, plan.ldf), dtype=torch.float32, device=S.device)
+    stream = torch.cuda.current_stream(S.device).cuda_stream
     lib = _lib()
-    err = lib.band_matmul(
-        S.data_ptr(), starts.data_ptr(), fp.data_ptr(), out.data_ptr(),
-        R, M, band, row_tile, ldf, cn, torch.cuda.current_stream(S.device).cuda_stream)
+    if plan.kernel == "wmma":
+        fp = f if C == plan.ldf else torch.nn.functional.pad(f, (0, plan.ldf - C))
+        err = lib.band_matmul_wmma(S.data_ptr(), starts.data_ptr(), fp.data_ptr(),
+                                   out.data_ptr(), R, M, band, row_tile, stream)
+    else:
+        # TMA reads F's rows at 16-byte aligned strides: C a multiple of 8
+        if C % 8:
+            f = torch.nn.functional.pad(f, (0, -C % 8))
+        elif f.data_ptr() % 16:
+            f = f.clone()
+        err = lib.band_matmul_wgmma(
+            S.data_ptr(), starts.data_ptr(), f.data_ptr(), out.data_ptr(), R, M,
+            f.shape[1], band, row_tile, plan.bn, plan.ldf, plan.cluster, stream)
     if err != 0:
         raise RuntimeError(f"band_matmul launch failed: CUDA error {err}")
     banded_window_matmul.launches += 1
@@ -96,7 +142,9 @@ def _lib():
 
     lib = load("band_matmul")
     if not getattr(lib, "_typed", False):
-        lib.band_matmul.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        lib.band_matmul.restype = ctypes.c_int
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.band_matmul_wmma.argtypes = [p] * 4 + [i] * 4 + [p]
+        lib.band_matmul_wgmma.argtypes = [p] * 4 + [i] * 8 + [p]
+        lib.band_matmul_wmma.restype = lib.band_matmul_wgmma.restype = ctypes.c_int
         lib._typed = True
     return lib

@@ -2,7 +2,7 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point and compiles on its
 own into ``geopurify_tpu_torch/_build/lib<name>-<hash>.so`` (the hash is
-the source's, so an edited source rebuilds). Sources include no PyTorch
+the source's and the ``csrc/*.cuh`` headers', so an edit rebuilds). Sources include no PyTorch
 header, which keeps a build to seconds. ``build_all`` starts one nvcc per
 source at once and waits for all of them. Nothing here runs at import.
 """
@@ -36,8 +36,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # headers a source may include
+        h.update(header.read_bytes())
+    return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _command(name: str, out: Path):

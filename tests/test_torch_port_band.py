@@ -152,3 +152,52 @@ def test_iterate_pooling_gather_f32_matches_jax(rng):
     got = tpool.iterate_pooling(_t(w), _t(nbr), _t(feats), num_iterations=6,
                                 compute_dtype=torch.float32)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# K1's launch plan (host side; the kernels themselves run only on a card)
+# ---------------------------------------------------------------------------
+
+_PRESET_CLASSES = {"scannet": 19, "matterport": 21, "matterport40": 40,
+                   "matterport80": 80, "matterport160": 160, "scannet200": 200}
+
+
+@pytest.mark.parametrize("row_tile", [2048, 128, 384])
+def test_k1_plan_covers_every_width(row_tile):
+    from geopurify_tpu_torch.ops.band import WGMMA_COLS, _plan
+
+    assert list(WGMMA_COLS) == sorted(WGMMA_COLS) and WGMMA_COLS[-1] == 256
+    assert all(b % 8 == 0 for b in WGMMA_COLS)          # the wgmma N step
+    for C in range(1, 513):
+        p = _plan(C, row_tile)
+        assert p.slabs * p.bn == p.ldf >= C and p.ldf % 8 == 0
+        if C <= 32:
+            assert (p.kernel, p.bn, p.ldf, p.cluster) == ("wmma", 32, 32, 1)
+            continue
+        assert p.kernel == "wgmma" and p.bn in WGMMA_COLS
+        assert p.slabs == -(-C // 256) and p.bn <= 256
+        per = -(-C // p.slabs)          # each slab's share of C
+        assert per <= p.bn <= 1.25 * per, (C, p)
+        assert p.cluster == (2 if row_tile % 256 == 0 else 1)
+
+
+def test_k1_plan_at_the_presets():
+    from geopurify_tpu_torch.ops.band import _plan
+
+    got = {name: _plan(C, 2048)[:4] for name, C in _PRESET_CLASSES.items()}
+    assert got == {"scannet": ("wmma", 32, 32, 1), "matterport": ("wmma", 32, 32, 1),
+                   "matterport40": ("wgmma", 40, 40, 1),
+                   "matterport80": ("wgmma", 80, 80, 1),
+                   "matterport160": ("wgmma", 160, 160, 1),
+                   "scannet200": ("wgmma", 200, 200, 1)}
+    assert _plan(512, 2048)[:4] == ("wgmma", 256, 512, 2)      # feature space
+    for bad in (0, 513):
+        with pytest.raises(ValueError):
+            _plan(bad, 2048)
+
+
+def test_wgmma_header_is_generated_from_the_plan():
+    from geopurify_tpu_torch.ops.band import WGMMA_COLS
+    from geopurify_tpu_torch.utils.gen_wgmma import HEADER, render
+
+    assert HEADER.read_text() == render(WGMMA_COLS)

@@ -1,12 +1,16 @@
 """Kernels K1 and K2 on the card, each against its plain PyTorch version.
 
 K1 at awkward shapes: ragged row counts, C below 32, a band that is not a
-multiple of the kernel's chunk, windows clamped at the last row; every
-column instantiation (C = 64, 100, 200 and 512, the last as two column
-slabs of 256); and one S of more than 2^31 elements, whose row offsets need
-64 bits. K2 (fused
-InfoNCE forward and backward) at E = 8, 16, 128, NEG from 1 to 63
-and anchor counts that are not a multiple of the warps of a block. Then
+multiple of the kernel's chunk, windows clamped at the last row; the wgmma
+kernel at C = 64, 100, 200 and 512 (the last as two column slabs of 256);
+and one S of more than 2^31 elements, whose row offsets need 64 bits. Then
+the wgmma kernel at the Matterport presets' class counts (40, 80, 160),
+scannet200's at a row tile of one cluster, R < 128, an odd count of
+128-row blocks (a padded cluster grid), row tiles of 128 and 384 (no
+cluster; block pairs that straddle two windows), a ragged band at a wide
+C, two slabs of 160, and the clamp at C = 200 and 512. K2 (fused InfoNCE
+forward and backward) at E = 8, 16, 128, NEG from 1 to 63 and anchor
+counts that are not a multiple of the warps of a block. Then
 each wrapper's refusals. Marked ``cuda``; skipped where no card is present.
 Run on a machine with one: ``python -m pytest -m cuda tests/test_torch_port_cuda.py``.
 """
@@ -32,7 +36,7 @@ def card():
     (4096, 4096, 1024, 1, 2048),   # one column
     (3000, 4000, 512, 64, 256),    # the 64-column instantiation, ragged rows
     (1500, 2048, 256, 100, 256),   # the 128-column instantiation
-    (2048, 4096, 1024, 200, 1024), # 256 columns a block (scannet200's classes)
+    (2048, 4096, 1024, 200, 1024), # scannet200's classes
     (1100, 2048, 520, 512, 512),   # two column slabs (feature space), ragged
     (262144, 262144, 8200, 19, 2048),  # R * band > 2^31
 ])
@@ -44,6 +48,40 @@ def test_k1_matches_plain_version(card, R, M, band, C, row_tile):
     starts = torch.randint(0, M - band + 1, (n_t,), generator=g, device=card)
     starts = (starts // 8 * 8).to(torch.int32)
     starts[-1] = M - 8           # past the contract: rows clamp to M - 1
+    n0 = banded_window_matmul.launches
+    out = banded_window_matmul(S, starts, f, band=band, row_tile=row_tile)
+    torch.cuda.synchronize()
+    assert banded_window_matmul.launches == n0 + 1
+    ref = banded_window_matmul_ref(S, starts, f, band=band, row_tile=row_tile)
+    assert out.shape == ref.shape == (R, C) and out.dtype == torch.float32
+    # f32 sums of exact bf16 products, in another order
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-4 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("R,M,band,C,row_tile,last_start", [
+    (4096, 4096, 512, 40, 2048, None),      # matterport40's classes, cluster of 2
+    (4096, 4096, 512, 80, 2048, None),      # matterport80
+    (3000, 4096, 640, 160, 1024, None),     # matterport160, ragged rows
+    (2048, 3000, 384, 200, 256, None),      # scannet200's classes, one cluster a tile
+    (33, 600, 128, 33, 2048, None),         # the narrowest wgmma tile, R < 128
+    (1408, 2048, 256, 200, 512, None),      # 11 row blocks: the cluster grid is padded
+    (1000, 1500, 256, 96, 128, None),       # row_tile 128: no cluster
+    (1500, 2000, 320, 160, 384, None),      # row_tile 384: a block pair straddles windows
+    (100, 600, 192, 64, 2048, None),        # R < 128
+    (2048, 4096, 200, 256, 2048, None),     # band % 64 != 0 at a wide C
+    (1100, 2048, 136, 300, 512, None),      # two slabs of 160, F padded to 8
+    (2048, 2048, 1024, 200, 2048, 2040),    # the clamp: the window runs past M
+    (1024, 1536, 768, 512, 256, 1528),      # the clamp at two slabs of 256
+])
+def test_k1_wgmma_matches_plain_version(card, R, M, band, C, row_tile, last_start):
+    g = torch.Generator(device=card).manual_seed(R + C + band)
+    n_t = -(-R // row_tile)
+    S = torch.randn((R, band), generator=g, device=card).to(torch.bfloat16)
+    f = torch.randn((M, C), generator=g, device=card).to(torch.bfloat16)
+    starts = torch.randint(0, M - band + 1, (n_t,), generator=g, device=card)
+    starts = (starts // 8 * 8).to(torch.int32)
+    if last_start is not None:
+        starts[-1] = last_start     # past the contract: rows clamp to M - 1
     n0 = banded_window_matmul.launches
     out = banded_window_matmul(S, starts, f, band=band, row_tile=row_tile)
     torch.cuda.synchronize()
