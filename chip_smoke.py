@@ -53,7 +53,20 @@ Phases (any failure exits non-zero; each prints its seconds):
    fill runs), seeded so that all four classes win: equal batches from
    both loaders, logits within 1% of their scale, predictions flipped only
    at near-ties and at most 9 points, histograms accounted for by the
-   flips.
+   flips;
+12. released-layout checkpoints in, on-disk scenes through both stages:
+   two ScanNet-layout scenes (2^20 points, 36 views) written as in phase
+   10; the full-width X-Decoder and language tower written out by the
+   port's inverse converter and run through ``run.validate.main
+   xdecoder.ckpt=...`` against the same weights loaded directly (identical
+   predictions, logits and mIoU, 19 K1 launches each); the full-width
+   Sonata out to the release layout and back through ``sonata.ckpt``
+   (bit-equal teacher features at P=2^20); ``run.precompute.main`` over
+   both scenes and fused-feature files made from its cache (P = M = 2^16,
+   the cache's cut); ``run.train.main`` with ``--teacher-cache`` (3
+   steps), ``--fused-features`` (2) and live at the preset's own buckets
+   (2; P=2^20, M=2^18, V=64), each with K2's forward and backward launched
+   once a step, finite losses and a checkpoint, timed per step.
 
 A K1 row at a preset's class count (or feature space's 512) that is
 slower than its library call is flagged (``FLAG:`` lines naming the preset,
@@ -186,6 +199,20 @@ def seed_weights(pipe, seed: int, device):
                 continue
             p.copy_(torch.randn(p.shape, generator=g, device=device)
                     * (2.0 / fan_in) ** 0.5)
+
+
+def seed_released(pipe, seed: int, device):
+    """Phase 3's recipe (N(0, 1) x 0.02) for the X-Decoder's weights and
+    biases, but norm scales at 1 + N(0, 1) x 0.02: the 0.02 scales of
+    ``seed_weights`` shrink the bf16 activations of FocalNet-L's 24 blocks
+    until the lifted features and the logits are all zero, and a
+    comparison of two runs would then see only zeros."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in pipe.xdecoder.named_parameters():
+            r = torch.randn(p.shape, generator=g, device=device) * 0.02
+            norm = p.dim() == 1 and name.endswith("weight") and "norm" in name
+            p.copy_(1 + r if norm else r)
 
 
 def seed_small(pipe, seed: int):
@@ -859,11 +886,15 @@ class Instrument:
     view coverage and the classes predicted) and the smoothing's kNN
     (synchronised timer). ``build_pipeline`` gives the X-Decoder phase 3's
     seeded weights (the entry point's stand-in is all zeros, which would
-    send zeros through the lift and the smoothing). Restores everything on
-    exit."""
+    send zeros through the lift and the smoothing), or those of ``seed``
+    (None: an ``xdecoder.ckpt`` run keeps the converted weights). Each
+    scene's per-point predictions and logits are kept on the host in
+    ``preds``. Restores everything on exit."""
 
-    def __init__(self, mods):
-        self.mods, self.scenes, self._undo = mods, [], []
+    def __init__(self, mods, seed=seed_weights):
+        self.mods, self.scenes, self.preds, self._undo = mods, [], [], []
+        self.build_s = None
+        self.seed = seed
 
     def _patch(self, owner, name, fn):
         self._undo.append((owner, name, getattr(owner, name)))
@@ -878,8 +909,12 @@ class Instrument:
         rec = self
 
         def build_pipeline(*a, **k):
+            t = time.perf_counter()
             built = build(*a, **k)
-            seed_weights(built, 1, "cuda")      # main then seeds the student itself
+            if rec.seed is not None:
+                rec.seed(built, 1, "cuda")      # main then seeds the student itself
+            torch.cuda.synchronize()
+            rec.build_s = time.perf_counter() - t
             return built
 
         def make_scene_batch(ds, sid, *a, **k):
@@ -910,6 +945,7 @@ class Instrument:
                      classes=int(out["logits"].shape[1]),
                      covered=float((out["view_count"][valid] > 0).float().mean()),
                      predicted=int(torch.unique(out["pred"][valid]).numel()))
+            rec.preds.append((out["pred"].cpu(), out["logits"].cpu()))
             return out
 
         def knn_self_grid(*a, **k):
@@ -939,7 +975,7 @@ PRESET_OVERRIDES = ["pooling.band=6144", "pooling.max_residual=2097152"]
 
 
 def run_validate(mods, preset: str, root: Path, n_scenes: int, min_views: int,
-                 extra=()):
+                 extra=(), seed=seed_weights):
     """``run.validate.main`` on the card over the first ``n_scenes`` of
     ``root``; the K1 count is set to 0 just before and read just after."""
     band = mods["band"]
@@ -948,7 +984,7 @@ def run_validate(mods, preset: str, root: Path, n_scenes: int, min_views: int,
     args = ["--preset", preset, "--max-scenes", str(n_scenes)] + overrides + \
         dataset_overrides(root)
     band.banded_window_matmul.launches = 0
-    with Instrument(mods) as ins:
+    with Instrument(mods, seed) as ins:
         t = time.perf_counter()
         result = mods["validate"].main(args)
         wall = time.perf_counter() - t
@@ -978,7 +1014,8 @@ def run_validate(mods, preset: str, root: Path, n_scenes: int, min_views: int,
     assert all(np.isfinite(v) for g in groups.values() for v in g.values())
     assert len(result["per_class_iou"]) == cfg.data.test_classes
     assert result["scenes_per_sec"] > 0
-    return dict(scenes=ins.scenes, k1_launches=launches, wall_s=wall, result=result)
+    return dict(scenes=ins.scenes, k1_launches=launches, wall_s=wall, result=result,
+                preds=ins.preds, build_s=ins.build_s)
 
 
 def phase_preset_validation(mods, views=(36, 140)):
@@ -996,6 +1033,8 @@ def phase_preset_validation(mods, views=(36, 140)):
         scannet200 = run_validate(mods, "scannet200", root, 1, min_views=32)
         feature = run_validate(mods, "scannet", root, 1, min_views=32,
                                extra=["pooling.smooth_space=feature"])
+    for rec in (scannet, scannet200, feature):
+        del rec["preds"]
     return dict(write_s=write_s, scannet=scannet, scannet200=scannet200, feature=feature)
 
 
@@ -1101,6 +1140,295 @@ def phase_validation_small(mods, n_scenes=2):
                 logit_scale=scale, hist_diff=float(hist_diff), classes=sorted(classes))
 
 
+# ---------------------------------------------------------------------------
+# phase 12: released-layout checkpoints in, on-disk scenes through both stages
+# ---------------------------------------------------------------------------
+
+# the cache and fused-feature modes' cut: P = M = 2^16 points a scene (the
+# preset keeps 2^20 in 2^18 voxels). A cache entry holds P x (512 + 1088)
+# f32 values, 0.42 GB at 2^16 (6.7 GB at 2^20), deflated as the JAX
+# package writes it, which takes most of the precompute's time; M >= P
+# keeps every sampled point, so the fused files' rows align with the batch
+# (the loader's voxel budget would drop points otherwise)
+FROZEN_SIZES = ["data.max_points=65536", "data.max_voxels=65536"]
+# the synthetic room's 2^20 points put far more than the train split's
+# 65000 visible points (the reference's cap) into every rendered view
+TRAIN_VIEWS = ["fusion.max_visible_points=1048576"]
+
+
+class deterministic:
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` inside
+    the block: the voxel means' ``index_add_`` sums in a fixed order, so two
+    runs on the same weights can be compared bit for bit."""
+
+    def __enter__(self):
+        self.prev = (torch.are_deterministic_algorithms_enabled(),
+                     torch.is_deterministic_algorithms_warn_only_enabled())
+        torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def __exit__(self, *exc):
+        torch.use_deterministic_algorithms(self.prev[0], warn_only=self.prev[1])
+
+
+def save_reference(path: Path, sd) -> float:
+    """``torch.save`` of a reference-layout state dict (numpy -> tensors);
+    returns its size in MB."""
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}, path)
+    return path.stat().st_size / 1e6
+
+
+def released_xdecoder(mods, root: Path):
+    """The full-width ``scannet`` X-Decoder with ``seed_released``'s weights
+    and the language tower ``build_pipeline`` initialises without a
+    checkpoint, written out in the reference layout
+    (``xdecoder_focall_last.pt``)."""
+    cfg = mods["cfg"].load_config("scannet")
+    t = cfg.text
+    lang = mods["lang"].LanguageEncoder(t.vocab_size, t.width, t.layers, t.heads,
+                                        t.context_length, t.dim_proj)
+    mods["lang"].init_language_(lang, torch.Generator().manual_seed(cfg.train.manual_seed))
+    xdec = mods["xdec"].XDecoderSegModel(cfg.xdecoder).to("cuda")
+    seed_released(type("Teacher", (), dict(xdecoder=xdec))(), 1, "cuda")
+    path = root / "xdecoder_focall_last.pt"
+    t0 = time.perf_counter()
+    mb = save_reference(path, mods["convx"].synthesize_torch_state_dict(xdec, lang))
+    n = sum(p.numel() for p in xdec.parameters()) + sum(p.numel() for p in lang.parameters())
+    log(f"reference-layout X-Decoder + language tower: {n / 1e6:.1f} M parameters, "
+        f"{mb:.0f} MB written in {time.perf_counter() - t0:.1f} s")
+    return path, mb
+
+
+def released_sonata(mods, root: Path, batch):
+    """The full-width Sonata (``sonata.norm=ln``) seeded as in phase 6, out to
+    the release layout (spconv >= 2 kernels) and back through
+    ``sonata.ckpt``: the teacher's features on ``batch`` must be bit-equal
+    to those of the teacher loaded directly."""
+    cfg = mods["cfg"].load_config("scannet")
+    assert cfg.sonata.norm == "ln"
+    sonata = mods["pipe"].build_sonata(cfg.sonata).to("cuda")
+    seed_sonata(sonata, 3, "cuda")
+    path = root / "sonata.pth"
+    mb = save_reference(path, mods["convs"].export_sonata_state_dict(sonata))
+    text = text_embeddings(len(cfg.data.all_label) + 1, cfg.xdecoder.hidden_dim, seed=0)
+    direct = mods["pipe"].GeoPurifyPipeline(cfg, text, 20.0, device="cuda",
+                                            sonata_state=sonata.state_dict())
+    del sonata
+    ccfg = mods["cfg"].load_config("scannet", overrides=[f"sonata.ckpt={path}"])
+    conv, conv_s = synced(lambda: mods["train"].build_pipeline(
+        ccfg, torch.Generator().manual_seed(0), "cuda"))
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        direct.sonata.state_dict().values(), conv.sonata.state_dict().values()))
+    with deterministic():
+        ft_d, direct_s = synced(lambda: direct.teacher_point_features(batch))
+        ft_c, ckpt_s = synced(lambda: conv.teacher_point_features(batch))
+    equal = torch.equal(ft_d, ft_c)
+    log(f"Sonata through sonata.ckpt ({mb:.0f} MB, build_pipeline {conv_s:.1f} s): "
+        f"parameters bit-equal {same_params}; teacher features {tuple(ft_c.shape)} "
+        f"bit-equal {equal} (max |diff| {(ft_d - ft_c).abs().max().item():.3e}); "
+        f"{direct_s:.2f} s direct, {ckpt_s:.2f} s converted")
+    assert same_params and equal
+    assert torch.isfinite(ft_c).all() and ft_c.abs().max() > 0
+    return path, dict(mb=mb, build_s=conv_s, features_bit_equal=equal,
+                      direct_s=direct_s, converted_s=ckpt_s)
+
+
+class timed_precompute:
+    """Times ``precompute_scene`` (the lift and the teacher, to host arrays)
+    and the compressed write of each scene of ``run.precompute.main``."""
+
+    def __init__(self, mod):
+        self.mod, self.compute, self.write = mod, [], []
+        self.scene, self.save = mod.precompute_scene, mod.np.savez_compressed
+
+        def scene(*a, **k):
+            out, dt = synced(lambda: self.scene(*a, **k))
+            self.compute.append(dt)
+            return out
+
+        def save(*a, **k):
+            t = time.perf_counter()
+            self.save(*a, **k)
+            self.write.append(time.perf_counter() - t)
+
+        mod.precompute_scene, mod.np.savez_compressed = scene, save
+
+    def undo(self):
+        self.mod.precompute_scene, self.mod.np.savez_compressed = self.scene, self.save
+
+
+def write_fused_features(mods, root: Path, cache: Path, out: Path, sids, P: int) -> float:
+    """One ``<sid>.pt`` per scene in the reference layout, from the cached
+    ``f2d``: ``feat`` over the sampled points, ``mask_full`` over all of the
+    scene's points; returns MB a scene."""
+    out.mkdir()
+    sizes = []
+    for sid in sids:
+        n_all = len(mods["loaders"].load_scene_any(str(root / "3d" / f"{sid}_vh_clean_2.pth")).xyz)
+        keep = mods["loaders"].deterministic_keep(sid, n_all, P)
+        with np.load(cache / f"{sid}.npz") as data:
+            valid = data["point_valid"]
+            feat = data["f2d"][: int(valid.sum())]
+        assert len(feat) == len(keep) and valid[: len(keep)].all()
+        mask = np.zeros(n_all, bool)
+        mask[keep] = True
+        torch.save({"feat": torch.from_numpy(np.ascontiguousarray(feat)),
+                    "mask_full": torch.from_numpy(mask)}, out / f"{sid}.pt")
+        sizes.append((out / f"{sid}.pt").stat().st_size / 1e6)
+    return float(np.mean(sizes))
+
+
+def run_train_mode(mods, label: str, args, steps: int):
+    """``run.train.main`` with ``args``; the K2 counts are set to 0 just
+    before and read just after. Records each step's host seconds (inputs,
+    train step) and the stage split of the metrics record."""
+    train_mod, nce = mods["train"], mods["nce"]
+    inputs_call, make_step = train_mod.StepInputs.__call__, train_mod.make_train_step
+    times = []
+
+    def timed_inputs(self, it):
+        out, dt = synced(lambda: inputs_call(self, it))
+        times.append(dict(inputs_s=dt, usable=out is not None))
+        return out
+
+    def timed_make_step(pipeline):
+        step = make_step(pipeline)
+
+        def run(*a):
+            loss, dt = synced(lambda: step(*a))
+            times[-1]["step_s"] = dt
+            return loss
+        return run
+
+    train_mod.StepInputs.__call__ = timed_inputs
+    train_mod.make_train_step = timed_make_step
+    torch.cuda.reset_peak_memory_stats()
+    nce.info_nce_fwd.launches = nce.info_nce_bwd.launches = 0
+    try:
+        state, wall = synced(lambda: train_mod.main(args))
+    finally:
+        train_mod.StepInputs.__call__ = inputs_call
+        train_mod.make_train_step = make_step
+    launches = (nce.info_nce_fwd.launches, nce.info_nce_bwd.launches)
+    peak = torch.cuda.max_memory_allocated()
+    save = Path([a.split("=", 1)[1] for a in args if a.startswith("train.save_path=")][-1])
+    recs = [json.loads(x) for x in (save / "metrics.jsonl").read_text().splitlines()]
+    stages = recs[-1]["stages"]
+    per = [t["inputs_s"] + t["step_s"] for t in times]
+    split = ", ".join("%.2f + %.2f" % (t["inputs_s"], t["step_s"]) for t in times)
+    log(f"{label}: {state.step} steps in {wall:.1f} s (startup included); per step "
+        f"inputs + train step {split} s; stages {json.dumps(stages)}; losses "
+        f"{[round(r['loss'], 5) for r in recs]}; K2 launches {launches}; peak "
+        f"{peak / 2**30:.2f} GiB")
+    assert state.step == steps and len(times) == steps and all(t["usable"] for t in times)
+    assert launches == (steps, steps), launches
+    assert all(np.isfinite(r["loss"]) for r in recs) and len(recs) == steps
+    assert (save / "ckpt" / f"step_{steps}.pt").exists()
+    return dict(steps=steps, wall_s=wall, step_seconds=per, first_step_s=per[0],
+                later_steps_s=float(np.mean(per[1:])), inputs_s=[t["inputs_s"] for t in times],
+                train_step_s=[t["step_s"] for t in times], stages=stages,
+                losses=[r["loss"] for r in recs], k2_launches=launches, peak_bytes=peak)
+
+
+def phase_released(mods, views=(36, 36)):
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t = time.perf_counter()
+        sids = write_dataset(root, mods["batch"], views, 1 << 20, 1 << 18, frame_stride=20,
+                             color_wh=(1296, 968), depth_wh=(640, 480), device="cuda",
+                             seed0=41)
+        write_s = time.perf_counter() - t
+        log(f"wrote {len(views)} ScanNet-layout scenes ({views} views) in {write_s:.1f} s")
+        data = dataset_overrides(root) + [f"data.train_scene_list={root / 'list.txt'}"]
+
+        # 1. Stage 2 through xdecoder.ckpt against the same weights loaded directly
+        xpath, x_mb = released_xdecoder(mods, root)
+        with deterministic():
+            direct = run_validate(mods, "scannet", root, 1, min_views=32, seed=seed_released)
+            conv = run_validate(mods, "scannet", root, 1, min_views=32,
+                                extra=[f"xdecoder.ckpt={xpath}"], seed=None)
+        (pc, lc), (pd, ld) = conv.pop("preds")[0], direct.pop("preds")[0]
+        flips = int((pc != pd).sum())
+        diff, scale = (lc - ld).abs().max().item(), ld.abs().max().item()
+        miou = (conv["result"]["summary"]["all"]["mIoU"],
+                direct["result"]["summary"]["all"]["mIoU"])
+        log(f"xdecoder.ckpt ({x_mb:.0f} MB) against the weights loaded directly: "
+            f"{flips} of {pc.numel()} predictions differ ({torch.unique(pc).numel()} "
+            f"classes predicted), logits max |diff| {diff:.3e} of scale {scale:.4f}; "
+            f"mIoU {miou[0]} vs "
+            f"{miou[1]}; run.validate.main {conv['wall_s']:.1f} s vs "
+            f"{direct['wall_s']:.1f} s (the first of the process; build_pipeline "
+            f"{conv['build_s']:.1f} s vs {direct['build_s']:.1f} s, evaluate "
+            f"{conv['scenes'][0]['seconds']:.2f} s vs {direct['scenes'][0]['seconds']:.2f} s); "
+            f"K1 launches {conv['k1_launches']} and {direct['k1_launches']}")
+        assert flips == 0 and diff == 0 and scale > 0 and miou[0] == miou[1]
+        assert conv["k1_launches"] == direct["k1_launches"] == 19
+
+        # 2. the Sonata teacher through sonata.ckpt
+        cfg = mods["cfg"].load_config("scannet", overrides=data + TRAIN_VIEWS)
+        ds = mods["loaders"].SceneDataset(cfg, split="train", augment=False, device="cuda")
+        batch = ds.make_scene_batch(sids[0])
+        assert batch is not None and batch.points.shape[0] == 1 << 20
+        spath, sonata = released_sonata(mods, root, batch)
+        del batch, ds
+        torch.cuda.empty_cache()
+
+        # 3. precompute the teacher cache and fused files at the cut sizes
+        # (argparse takes the flags first, then the overrides)
+        ckpts = [f"xdecoder.ckpt={xpath}", f"sonata.ckpt={spath}"]
+        cache = root / "cache"
+        data += TRAIN_VIEWS
+        torch.cuda.reset_peak_memory_stats()
+        pre_split = timed_precompute(mods["precompute"])
+        pre, pre_wall = synced(lambda: mods["precompute"].main(
+            ["--preset", "scannet", "--out", str(cache)] + data + FROZEN_SIZES + ckpts))
+        pre_split.undo()
+        pre_peak = torch.cuda.max_memory_allocated()
+        cache_mb = float(np.mean([(cache / f"{s}.npz").stat().st_size / 1e6 for s in sids]))
+        with np.load(cache / f"{sids[0]}.npz") as d0:
+            shapes = {k: (d0[k].shape, str(d0[k].dtype)) for k in d0.files}
+        assert sorted(pre) == sorted(sids)
+        assert shapes == {"f2d": ((65536, 512), "float32"),
+                          "f_teacher": ((65536, 1088), "float32"),
+                          "point_valid": ((65536,), "bool")}, shapes
+        fused_mb = write_fused_features(mods, root, cache, root / "fused", sids, 65536)
+        split = ", ".join("%.1f + %.1f" % (c, w) for c, w in zip(pre_split.compute,
+                                                                pre_split.write))
+        log(f"run.precompute.main: {len(pre)} scenes in {pre_wall:.1f} s (startup included), "
+            f"{', '.join(f'{v:.1f}' for v in pre.values())} s a scene = lift and teacher + "
+            f"np.savez_compressed {split} s; {cache_mb:.0f} MB a cache file {shapes}; "
+            f"fused file {fused_mb:.0f} MB; peak {pre_peak / 2**30:.2f} GiB")
+
+        # 4. Stage 1 in the three real-data modes
+        modes = {}
+        for label, flags, steps, overrides in (
+                ("teacher cache", ["--teacher-cache", str(cache)], 3, FROZEN_SIZES),
+                ("fused features", ["--fused-features", str(root / "fused"),
+                                    "--teacher-cache", str(cache)], 2, FROZEN_SIZES),
+                ("live", [], 2, ckpts)):
+            args = (["--preset", "scannet", "--epochs", "1", "--steps-per-epoch", str(steps)]
+                    + flags + data + overrides
+                    + ["contrastive.fused_loss=true", "train.print_freq=1",
+                       f"train.save_path={root / label.replace(' ', '_')}"])
+            modes[label] = run_train_mode(mods, f"run.train.main {label}", args, steps)
+        for label in ("teacher cache", "fused features"):
+            assert "lift_2d" not in modes[label]["stages"], modes[label]["stages"]
+        assert {"lift_2d", "teacher_3d"} <= set(modes["live"]["stages"])
+        # the fused files hold the cached f2d row for row, and both modes read
+        # the cached teacher: the same scenes give the same losses
+        np.testing.assert_allclose(modes["fused features"]["losses"],
+                                   modes["teacher cache"]["losses"][:2], rtol=1e-4)
+    return dict(write_s=write_s, xdecoder_mb=x_mb, validate_converted=conv,
+                validate_direct=direct, prediction_flips=flips, logits_diff=diff,
+                logits_scale=scale,
+                miou=miou, sonata=sonata,
+                precompute_s=pre, precompute_wall_s=pre_wall, precompute_peak_bytes=pre_peak,
+                precompute_compute_s=pre_split.compute, precompute_write_s=pre_split.write,
+                cache_mb=cache_mb, fused_mb=fused_mb, modes=modes,
+                k1_launches=conv["k1_launches"] + direct["k1_launches"],
+                k2_launches=tuple(sum(m["k2_launches"][i] for m in modes.values())
+                                  for i in (0, 1)))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — needs a CUDA card",
@@ -1111,22 +1439,28 @@ def main() -> int:
     from geopurify_tpu_torch.data import batch as batch_mod
     from geopurify_tpu_torch.data import loaders as loaders_mod
     from geopurify_tpu_torch.data import synthetic as synth_mod
+    from geopurify_tpu_torch.models import lang as lang_mod
     from geopurify_tpu_torch.models import pipeline as pipe_mod
     from geopurify_tpu_torch.models import student as student_mod
+    from geopurify_tpu_torch.models import xdecoder as xdec_mod
     from geopurify_tpu_torch.ops import band as band_mod
     from geopurify_tpu_torch.ops import contrastive as ctr_mod
     from geopurify_tpu_torch.ops import infonce as nce_mod
     from geopurify_tpu_torch.ops import knn as knn_mod
     from geopurify_tpu_torch.ops import pooling as pool_mod
     from geopurify_tpu_torch.run import optim as optim_mod
+    from geopurify_tpu_torch.run import precompute as precompute_mod
     from geopurify_tpu_torch.run import train as train_mod
     from geopurify_tpu_torch.run import validate as validate_mod
+    from geopurify_tpu_torch.utils import convert_sonata as convs_mod
+    from geopurify_tpu_torch.utils import convert_xdecoder as convx_mod
     from geopurify_tpu_torch.utils.cuda_build import SOURCES, build_all
 
     mods = dict(cfg=cfg_mod, batch=batch_mod, synth=synth_mod, pipe=pipe_mod,
                 student=student_mod, ctr=ctr_mod, nce=nce_mod, knn=knn_mod,
                 optim=optim_mod, train=train_mod, loaders=loaders_mod,
-                validate=validate_mod, pool=pool_mod, band=band_mod)
+                validate=validate_mod, pool=pool_mod, band=band_mod, lang=lang_mod,
+                xdec=xdec_mod, precompute=precompute_mod, convx=convx_mod, convs=convs_mod)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
@@ -1163,6 +1497,7 @@ def main() -> int:
     k1_wide = run("9 K1 wide", phase_k1_wide, band_mod)
     preset = run("10 preset-scale validation", phase_preset_validation, mods)
     val_small = run("11 validation card vs CPU", phase_validation_small, mods)
+    released = run("12 released checkpoints, on-disk Stage 1", phase_released, mods)
 
     # K1 at every shape a main path launched it: the bench-spec scenes
     # (phase 3), the scannet, scannet200 and feature-space preset-scale
@@ -1177,6 +1512,10 @@ def main() -> int:
         k1_rows.append(dict(name=f"banded_window_matmul[M={M},band={band},C={C}]",
                             launches=preset[preset_name]["k1_launches"], **k1_base,
                             **k1_wide[(M, band, C)]))
+    # phase 12's run.validate.main runs (xdecoder.ckpt and direct weights)
+    k1_rows.append(dict(name="banded_window_matmul[M=262144,band=6144,C=19;xdecoder.ckpt]",
+                        launches=released["k1_launches"], **k1_base,
+                        **k1_wide[(1 << 18, 6144, 19)]))
     # a K1 row at a class count some preset smooths that the library call
     # beats is flagged on a line of its own and in the record, naming the
     # preset whether or not phase 10 ran it; it does not fail the run
@@ -1189,17 +1528,23 @@ def main() -> int:
             log(f"FLAG: {name} ({K1_PRESETS[C]}) takes {r['ms']:.4f} ms a launch, "
                 f"{r['ms'] / r['library_ms']:.2f}x torch.bmm over gathered windows "
                 f"({r['library_ms']:.4f} ms)")
-    k2_rows = [dict(name=name, route="cuda", source="geopurify_tpu_torch/csrc/infonce.cu",
+    # phase 6's step, and phase 12's run.train.main over on-disk scenes (the
+    # same A=4096, NEG=63, E=128 shape)
+    k2_rows = [dict(name=label, route="cuda", source="geopurify_tpu_torch/csrc/infonce.cu",
                     replaces=f"geopurify_tpu/ops/pallas_infonce.py:{line}",
                     launches=launches, **k2["rows"][name])
-               for name, line, launches in (
-                   ("info_nce_fwd", 128, stage1["k2_launches"][0]),
-                   ("info_nce_bwd", 146, stage1["k2_launches"][1]))]
+               for name, label, line, launches in (
+                   ("info_nce_fwd", "info_nce_fwd", 128, stage1["k2_launches"][0]),
+                   ("info_nce_bwd", "info_nce_bwd", 146, stage1["k2_launches"][1]),
+                   ("info_nce_fwd", "info_nce_fwd[run.train.main on-disk]", 128,
+                    released["k2_launches"][0]),
+                   ("info_nce_bwd", "info_nce_bwd[run.train.main on-disk]", 146,
+                    released["k2_launches"][1]))]
     record = dict(card=smi, phase_seconds=phase_s, k1=k1, main=main_rec, small=small,
                   k2=k2, stage1=stage1, train_main=train_rec, stage1_small=stage1_small,
                   k1_wide={str(k): v for k, v in k1_wide.items()},
                   k1_behind_library=k1_behind, preset=preset,
-                  validation_small=val_small)
+                  validation_small=val_small, released=released)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))

@@ -3,12 +3,15 @@
 Stage-2 inference (``models.pipeline.GeoPurifyPipeline.evaluate_scene``)
 and its validation entry over on-disk scenes (``run.validate``, through the
 data layer ``data.loaders``), and Stage-1 training
-(``GeoPurifyPipeline.stage1_loss``, ``run.train``), for one NVIDIA H100. The JAX package ``geopurify_tpu`` stays the reference:
+(``GeoPurifyPipeline.stage1_loss``, ``run.train``, ``run.precompute``) over
+synthetic or on-disk scenes, with the released checkpoints converted on load
+(``utils.convert_xdecoder``, ``utils.convert_sonata``), for one NVIDIA
+H100. The JAX package ``geopurify_tpu`` stays the reference:
 every module here cites its JAX counterpart by file:line, and the tests in
 ``tests/test_torch_port_*.py`` hold the two against each other on the CPU.
 
 This package imports torch, numpy and pyyaml (the data layer also scipy
-and Pillow) — never jax, flax or anything of geopurify_tpu.
+and Pillow) — never jax, flax, regex or anything of geopurify_tpu.
 """
 
 from __future__ import annotations

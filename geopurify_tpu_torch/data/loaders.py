@@ -165,13 +165,16 @@ def _pad_rows(x: torch.Tensor, n: int, value=0) -> torch.Tensor:
 # geopurify_tpu/data/loaders.py:195
 class SceneDataset:
     """Per-scene batches for training (Stage 1) and evaluation (Stage 2),
-    on ``device`` (``cuda`` by default; the tests pass ``cpu``). The train
-    split augments (the JAX loader's default); the others do not."""
+    on ``device`` (``cuda`` by default; the tests pass ``cpu``).
+    ``augment=None`` augments the train split only (the JAX default); the
+    trainer's frozen-input modes pass ``False``, since their cached
+    features belong to the unaugmented geometry."""
 
     def __init__(
         self,
         cfg: GeoPurifyConfig,
         split: str = "train",
+        augment: Optional[bool] = None,
         seed: int = 0,
         device="cuda",
     ):
@@ -180,7 +183,8 @@ class SceneDataset:
         self.device = resolve_device(device)
         self.rng = np.random.default_rng(seed)
         self.augment: Optional[Compose] = None
-        augment = split == "train"
+        if augment is None:
+            augment = split == "train"
         if augment:
             self.augment = default_train_augmentations()
         self.voxelizer = Voxelizer(

@@ -4,15 +4,22 @@ Port of geopurify_tpu/models/lang.py: token + learned positional
 embedding, causal post-norm transformer blocks (LayerNorm eps 1e-12,
 QuickGELU MLP), final LayerNorm, pooled at the EOT position (the argmax id),
 projected and L2-normalised. ``embed_class_names`` averages the CLIP prompt
-templates per class. The hash tokenizer stands in for CLIP's BPE when no
-vocabulary file is set; the BPE tokenizer itself waits for that file.
+templates per class. Text is tokenized by CLIP's byte-pair tokenizer when
+``text.tokenizer_vocab`` names the merges file, else by a hash tokenizer
+with the same interface.
 """
 
 from __future__ import annotations
 
+import gzip
 import hashlib
 import html
 import math
+import os
+import re
+import sys
+import unicodedata
+from functools import lru_cache
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -55,8 +62,193 @@ PROMPT_TEMPLATES: Tuple[str, ...] = (
 )
 
 
-def _clean(text: str) -> str:
-    return " ".join(html.unescape(html.unescape(text)).strip().split())
+# geopurify_tpu/models/lang.py:72
+@lru_cache()
+def _bytes_to_unicode():
+    bs = (
+        list(range(ord("!"), ord("~") + 1))
+        + list(range(ord("\xa1"), ord("\xac") + 1))
+        + list(range(ord("\xae"), ord("\xff") + 1))
+    )
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return dict(zip(bs, [chr(c) for c in cs]))
+
+
+# geopurify_tpu/models/lang.py:88
+def _get_pairs(word):
+    pairs = set()
+    prev = word[0]
+    for ch in word[1:]:
+        pairs.add((prev, ch))
+        prev = ch
+    return pairs
+
+
+# geopurify_tpu/models/lang.py:97
+def _basic_clean(text: str) -> str:
+    return html.unescape(html.unescape(text)).strip()
+
+
+# geopurify_tpu/models/lang.py:102
+def _whitespace_clean(text: str) -> str:
+    return " ".join(text.split())
+
+
+# the Unicode White_Space property, as a character-class body
+_WHITE_SPACE = "\t\n\x0b\x0c\r \x85\xa0\u1680\u2000-\u200a\u2028\u2029\u202f\u205f\u3000"
+
+
+@lru_cache()
+def _letter_number_classes() -> Tuple[str, str]:
+    """The bodies of the character classes ``\\p{L}`` and ``\\p{N}`` for the
+    standard ``re`` module, which has no Unicode property escapes: every
+    code point whose general category starts with L (letters) or N (Nd,
+    and the Nl / No numerals that ``\\d`` misses), as ranges."""
+    spans = {"L": [], "N": []}
+    for cp in range(sys.maxunicode + 1):
+        group = spans.get(unicodedata.category(chr(cp))[0])
+        if group is None:
+            continue
+        if group and group[-1][1] == cp - 1:
+            group[-1][1] = cp
+        else:
+            group.append([cp, cp])
+
+    def body(ranges):
+        return "".join(f"\\U{a:08x}" if a == b else f"\\U{a:08x}-\\U{b:08x}"
+                       for a, b in ranges)
+
+    return body(spans["L"]), body(spans["N"])
+
+
+# geopurify_tpu/models/lang.py:106
+class ClipBPETokenizer:
+    """The CLIP byte-pair tokenizer over a gzipped merges file
+    (``bpe_simple_vocab_16e6.txt.gz``). The JAX version splits words with
+    the third-party ``regex`` module's ``\\p{L}`` / ``\\p{N}``; here the same
+    pattern is written for ``re`` with classes built from ``unicodedata``."""
+
+    def __init__(self, bpe_path: str, context_length: int = 77):
+        self.context_length = context_length
+        with gzip.open(bpe_path, "rt", encoding="utf-8") as f:
+            merges = f.read().split("\n")
+        merges = merges[1: 49152 - 256 - 2 + 1]
+        # only real pair lines: a short merges file leaves trailing empty
+        # lines that would become ()-merges and shift every id after them
+        merges = [m for m in (tuple(m.split()) for m in merges) if len(m) == 2]
+        self.byte_encoder = _bytes_to_unicode()
+        vocab = list(self.byte_encoder.values())
+        vocab = vocab + [v + "</w>" for v in vocab]
+        for m in merges:
+            vocab.append("".join(m))
+        vocab.extend(["<|startoftext|>", "<|endoftext|>"])
+        self.encoder = dict(zip(vocab, range(len(vocab))))
+        self.bpe_ranks = dict(zip(merges, range(len(merges))))
+        self.cache = {
+            "<|startoftext|>": "<|startoftext|>",
+            "<|endoftext|>": "<|endoftext|>",
+        }
+        letters, numbers = _letter_number_classes()
+        # regex's \s is the White_Space property (re's also takes \x1c-\x1f)
+        self.pat = re.compile(
+            r"<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d"
+            rf"|[{letters}]+|[{numbers}]|[^{_WHITE_SPACE}{letters}{numbers}]+",
+            re.IGNORECASE,
+        )
+        self.vocab_size = len(self.encoder)
+        self.sot = self.encoder["<|startoftext|>"]
+        self.eot = self.encoder["<|endoftext|>"]
+
+    # geopurify_tpu/models/lang.py:142
+    def _bpe(self, token: str) -> str:
+        if token in self.cache:
+            return self.cache[token]
+        word = tuple(token[:-1]) + (token[-1] + "</w>",)
+        pairs = _get_pairs(word)
+        if not pairs:
+            return token + "</w>"
+        while True:
+            bigram = min(pairs, key=lambda p: self.bpe_ranks.get(p, float("inf")))
+            if bigram not in self.bpe_ranks:
+                break
+            first, second = bigram
+            new_word = []
+            i = 0
+            while i < len(word):
+                try:
+                    j = word.index(first, i)
+                    new_word.extend(word[i:j])
+                    i = j
+                except ValueError:
+                    new_word.extend(word[i:])
+                    break
+                if word[i] == first and i < len(word) - 1 and word[i + 1] == second:
+                    new_word.append(first + second)
+                    i += 2
+                else:
+                    new_word.append(word[i])
+                    i += 1
+            word = tuple(new_word)
+            if len(word) == 1:
+                break
+            pairs = _get_pairs(word)
+        out = " ".join(word)
+        self.cache[token] = out
+        return out
+
+    # geopurify_tpu/models/lang.py:178
+    def encode(self, text: str) -> List[int]:
+        bpe_tokens: List[int] = []
+        text = _whitespace_clean(_basic_clean(text)).lower()
+        # U+0345, a mark that case-folds to a letter, matches no branch of the
+        # pattern under regex's IGNORECASE (it splits the text and is
+        # dropped); re's would take it into the rest class
+        for token in self.pat.findall(text.replace("\u0345", " ")):
+            token = "".join(self.byte_encoder[b] for b in token.encode("utf-8"))
+            bpe_tokens.extend(self.encoder[t] for t in self._bpe(token).split(" "))
+        return bpe_tokens
+
+    # geopurify_tpu/models/lang.py:186
+    def __call__(self, texts: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
+        """(input_ids [B, L], attention_mask [B, L]) int32, padded/truncated."""
+        return _wrap(self, texts)
+
+    # geopurify_tpu/models/lang.py:197
+    def decode(self, ids: Sequence[int]) -> str:
+        """Ids -> text, stopping at EOT and dropping SOT."""
+        if not hasattr(self, "_decoder"):
+            self._decoder = {v: k for k, v in self.encoder.items()}
+            self._byte_decoder = {v: k for k, v in self.byte_encoder.items()}
+        parts = []
+        for i in ids:
+            i = int(i)
+            if i == self.eot:
+                break
+            if i == self.sot:
+                continue
+            parts.append(self._decoder.get(i, ""))
+        text = "".join(parts)
+        raw = bytearray(self._byte_decoder[c] for c in text.replace("</w>", "\u0120"))
+        return raw.decode("utf-8", errors="replace").replace("\u0120", " ").strip()
+
+
+def _wrap(tokenizer, texts: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
+    """SOT + the first ``context_length - 2`` ids + EOT per text, zero-padded;
+    (ids, mask) int32 [B, context_length]."""
+    L = tokenizer.context_length
+    ids = np.zeros((len(texts), L), np.int32)
+    mask = np.zeros((len(texts), L), np.int32)
+    for i, t in enumerate(texts):
+        toks = [tokenizer.sot] + tokenizer.encode(t)[: L - 2] + [tokenizer.eot]
+        ids[i, : len(toks)] = toks
+        mask[i, : len(toks)] = 1
+    return ids, mask
 
 
 # geopurify_tpu/models/lang.py:216
@@ -72,32 +264,32 @@ class HashTokenizer:
 
     def encode(self, text: str) -> List[int]:
         return [int(hashlib.md5(w.encode()).hexdigest(), 16) % (self.vocab_size - 2)
-                for w in _clean(text).lower().split()]
+                for w in _whitespace_clean(_basic_clean(text)).lower().split()]
 
     def __call__(self, texts: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
         """(input_ids [B, L], attention_mask [B, L]) int32, padded/truncated."""
-        L = self.context_length
-        ids = np.zeros((len(texts), L), np.int32)
-        mask = np.zeros((len(texts), L), np.int32)
-        for i, t in enumerate(texts):
-            toks = [self.sot] + self.encode(t)[: L - 2] + [self.eot]
-            ids[i, : len(toks)] = toks
-            mask[i, : len(toks)] = 1
-        return ids, mask
+        return _wrap(self, texts)
 
 
 # geopurify_tpu/models/lang.py:258
 def build_tokenizer(vocab_path: Optional[str] = None, context_length: int = 77,
                     vocab_size: int = 49408):
-    """The hash tokenizer over ``vocab_size`` ids (the text tower's
+    """CLIP's BPE tokenizer over the merges file ``vocab_path``, or, when it
+    is unset, the hash tokenizer over ``vocab_size`` ids (the text tower's
     ``text.vocab_size``, so that SOT / EOT fall inside its embedding table;
-    the JAX version always numbers them from 49408 — ROADMAP Queue 3). A BPE
-    vocabulary file is not supported yet."""
-    if vocab_path:
-        raise NotImplementedError(
-            "the CLIP BPE tokenizer is not ported yet (ROADMAP Queue 1 item 1, "
-            "'ClipBPETokenizer'); unset text.tokenizer_vocab to use the hash tokenizer")
-    return HashTokenizer(vocab_size=vocab_size, context_length=context_length)
+    the JAX version always numbers them from 49408 — ROADMAP Queue 3). A
+    path that does not exist raises: the JAX version falls back to the hash
+    tokenizer there, and a misspelt path gives meaningless text embeddings
+    (ROADMAP Queue 3)."""
+    if not vocab_path:
+        return HashTokenizer(vocab_size=vocab_size, context_length=context_length)
+    if not os.path.exists(vocab_path):
+        raise FileNotFoundError(f"text.tokenizer_vocab: no BPE merges file at {vocab_path!r}")
+    tk = ClipBPETokenizer(vocab_path, context_length)
+    if tk.vocab_size > vocab_size:
+        raise ValueError(f"{vocab_path}: {tk.vocab_size} BPE ids do not fit the text "
+                         f"tower's text.vocab_size={vocab_size}")
+    return tk
 
 
 class Embed(nn.Module):

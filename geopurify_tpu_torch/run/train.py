@@ -1,21 +1,29 @@
 """Stage-1 training entry — geometric distillation of the student.
 
-Port of geopurify_tpu/run/train.py on one device: each step lifts the 2D
-teacher (X-Decoder) and runs the frozen Sonata teacher outside autograd,
-then takes the value and gradient of ``stage1_loss`` and an AdamW step over
-three LR tiers (``run/optim.py``). Checkpoints hold the student's
-parameters and running statistics, the optimizer state, the step and the
-anchor generator's state (``utils/checkpoint.py``); ``train.resume``
-continues from them.
+Port of geopurify_tpu/run/train.py on one device: each step takes the
+frozen inputs of one scene (the X-Decoder lift and the Sonata teacher's
+features, computed live outside autograd or read from precomputed files),
+then the value and gradient of ``stage1_loss`` and an AdamW step over three
+LR tiers (``run/optim.py``). Checkpoints hold the student's parameters and
+running statistics, the optimizer state, the step and the anchor
+generator's state (``utils/checkpoint.py``); ``train.resume`` continues
+from them.
 
-The JAX trainer's data parallelism (``parallel.dp`` > 1, SyncBN), the
-teacher cache, the precomputed fused features and real datasets (the data
-layer exists, ``data/loaders.SceneDataset``, but is not wired in yet) wait
-in ROADMAP Queue 1: they raise ``NotImplementedError`` here. ``dp = -1`` (all
-devices) resolves to one device.
+Data: ``--synthetic`` rooms, or the on-disk train split
+(``data/loaders.SceneDataset``) with, optionally, a teacher cache written
+by ``run/precompute.py`` (``--teacher-cache``) or fused 2D feature files
+(``--fused-features``); augmentation is off in those two modes, whose
+features belong to the unaugmented geometry. ``xdecoder.ckpt`` /
+``sonata.ckpt`` name the released teachers (converted on load).
+
+The JAX trainer's data parallelism (``parallel.dp`` > 1, SyncBN) and
+``--distributed`` wait in ROADMAP Queue 1 and raise
+``NotImplementedError``; ``dp = -1`` (all devices) resolves to one device.
 
 Usage:
-  python -m geopurify_tpu_torch.run.train --synthetic --epochs 1 --steps-per-epoch 2
+  python -m geopurify_tpu_torch.run.train --preset scannet data.data_root=... \
+      xdecoder.ckpt=xdecoder_focall_last.pt sonata.ckpt=sonata.pth
+  python -m geopurify_tpu_torch.run.train --teacher-cache runs/teacher_cache ...
   python -m geopurify_tpu_torch.run.train --preset tiny --synthetic --device cpu
 """
 
@@ -28,8 +36,9 @@ import logging
 import os
 import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from geopurify_tpu_torch import resolve_device
@@ -45,6 +54,7 @@ from geopurify_tpu_torch.models.pipeline import GeoPurifyPipeline, build_sonata
 from geopurify_tpu_torch.models.student import init_student_
 from geopurify_tpu_torch.run.optim import StudentOptimizer, make_optimizer
 from geopurify_tpu_torch.utils.checkpoint import (
+    load_torch_state_dict,
     restore_checkpoint,
     save_checkpoint_with_retry as save_checkpoint,
 )
@@ -116,50 +126,72 @@ def build_pipeline(cfg: GeoPurifyConfig, generator: torch.Generator, device="cud
                    require_teachers: bool = False, with_sonata: bool = True):
     """The pipeline with frozen teachers and class-name text embeddings.
 
-    The language tower is initialised from ``generator`` (a CPU generator)
-    and embeds the class prompts. Without released checkpoints the
-    X-Decoder and Sonata teachers are zero stand-ins, as in the JAX trainer
-    when ``xdecoder.ckpt`` / ``sonata.ckpt`` are unset: fine for smoke runs,
-    meaningless on real data, so ``require_teachers`` (the real-data entry
-    points) logs the JAX package's warnings. Converting the released
-    checkpoints is not ported yet. ``with_sonata=False`` leaves the Sonata
-    teacher out (Stage 2 never runs it)."""
-    if cfg.xdecoder.ckpt or cfg.sonata.ckpt:
-        raise NotImplementedError(
-            "converting the released X-Decoder / Sonata checkpoints is not ported "
-            "yet (ROADMAP Queue 1); unset xdecoder.ckpt and sonata.ckpt")
+    With ``xdecoder.ckpt`` the X-Decoder and the language tower load from
+    the converted released checkpoint (``utils/convert_xdecoder.py``) and
+    the logit scale is the checkpoint's; with ``sonata.ckpt`` the teacher
+    loads from ``utils/convert_sonata.py``. Loads are strict: a missing or
+    extra parameter raises. Unset, the language tower is initialised from
+    ``generator`` (a CPU generator) and the teachers are zero stand-ins, as
+    in the JAX trainer: fine for smoke runs, meaningless on real data, so
+    ``require_teachers`` (the real-data entry points) logs the JAX
+    package's warnings. ``with_sonata=False`` leaves the Sonata teacher out
+    (Stage 2 never runs it)."""
     if cfg.xdecoder.lift_backend != "xdecoder":
         raise NotImplementedError("only the xdecoder lift backend is ported")
-    if require_teachers:
-        log.warning(
-            "REAL-DATA RUN WITH UNINITIALIZED 2D TEACHER: xdecoder.ckpt is not "
-            "set, so the frozen X-Decoder teacher is all zeros and every lifted "
-            "feature (and any mIoU built on it) is meaningless. Set "
-            "xdecoder.ckpt=/path/to/xdecoder_focall_last.pt.")
-        if with_sonata:
-            log.warning(
-                "REAL-DATA RUN WITH UNINITIALIZED 3D TEACHER: sonata.ckpt is "
-                "not set — Stage-1 distillation targets are random. Set "
-                "sonata.ckpt=/path/to/sonata.pth (facebook/sonata release).")
     dev = resolve_device(device)
-    t = cfg.text
+    t, x = cfg.text, cfg.xdecoder
     tk = build_tokenizer(t.tokenizer_vocab, t.context_length, t.vocab_size)
     lang = LanguageEncoder(t.vocab_size, t.width, t.layers, t.heads,
                            t.context_length, t.dim_proj)
-    init_language_(lang, generator)
+    conv = None
+    if x.ckpt:
+        from geopurify_tpu_torch.utils.convert_xdecoder import convert_xdecoder_checkpoint
+
+        log.info("converting X-Decoder teacher checkpoint %s", x.ckpt)
+        conv = convert_xdecoder_checkpoint(
+            load_torch_state_dict(x.ckpt), depths=tuple(x.backbone.depths),
+            enc_layers=x.enc_layers, dec_layers=x.dec_layers)
+        lang.load_state_dict(conv["lang"])
+    else:
+        if require_teachers:
+            log.warning(
+                "REAL-DATA RUN WITH UNINITIALIZED 2D TEACHER: xdecoder.ckpt is not "
+                "set, so the frozen X-Decoder teacher is all zeros and every lifted "
+                "feature (and any mIoU built on it) is meaningless. Set "
+                "xdecoder.ckpt=/path/to/xdecoder_focall_last.pt.")
+        init_language_(lang, generator)
     lang.to(dev).eval()
     text = embed_class_names(lang, tk, list(cfg.data.all_label),
                              use_templates=t.prompt_eng, template=t.prompt_template,
                              device=dev)
-    logit_scale = float(lang.scale().detach())
+    # both routes take numpy's exp of the f32 parameter, as the converter
+    # does (torch's exp can differ by an ulp, which a bf16 head amplifies)
+    logit_scale = (conv["logit_scale"] if conv
+                   else float(np.exp(lang.logit_scale.detach().cpu().numpy())))
     sonata_state = None
     if with_sonata:
-        sonata = build_sonata(cfg.sonata)
-        _zero_(sonata)
-        sonata_state = sonata.state_dict()
+        sc = cfg.sonata
+        if sc.ckpt:
+            from geopurify_tpu_torch.utils.convert_sonata import convert_sonata_checkpoint
+
+            log.info("converting Sonata teacher checkpoint %s", sc.ckpt)
+            sonata_state = convert_sonata_checkpoint(load_torch_state_dict(sc.ckpt), sc)
+        else:
+            if require_teachers:
+                log.warning(
+                    "REAL-DATA RUN WITH UNINITIALIZED 3D TEACHER: sonata.ckpt is "
+                    "not set — Stage-1 distillation targets are random. Set "
+                    "sonata.ckpt=/path/to/sonata.pth (facebook/sonata release), "
+                    "or train from a teacher cache (run/precompute.py) built with "
+                    "a converted teacher.")
+            sonata = build_sonata(sc)
+            _zero_(sonata)
+            sonata_state = sonata.state_dict()
     pipeline = GeoPurifyPipeline(cfg, text, logit_scale, device=dev,
+                                 teacher_state=conv["xdecoder"] if conv else None,
                                  sonata_state=sonata_state)
-    _zero_(pipeline.xdecoder)
+    if conv is None:
+        _zero_(pipeline.xdecoder)
     return pipeline
 
 
@@ -173,6 +205,58 @@ def _dp(cfg: GeoPurifyConfig) -> int:
     return 1
 
 
+# geopurify_tpu/run/train.py:377-407
+class StepInputs:
+    """The inputs of each step, ``(sid, scene, f2d, f_teacher)``, or None
+    when the scene is unusable (the step is skipped, as in JAX). The scene
+    comes from ``scenes`` (synthetic, in turn), from ``fused_ds`` (fused 2D
+    features read with it) or, with a ``teacher_cache``, from ``ds`` by id;
+    otherwise from ``ds``'s prefetching stream, whose scenes carry no id.
+    ``f2d`` and ``f_teacher`` come from ``<teacher_cache>/<sid>.npz`` where
+    it exists; what is still missing is computed live (the X-Decoder lift,
+    the Sonata teacher), timed as ``lift_2d`` / ``teacher_3d``."""
+
+    def __init__(self, pipeline: GeoPurifyPipeline, timer: StageTimer, scenes=None,
+                 ds=None, fused_ds=None, teacher_cache: Optional[str] = None):
+        self.pipeline, self.timer, self.scenes = pipeline, timer, scenes
+        self.ds, self.fused_ds, self.teacher_cache = ds, fused_ds, teacher_cache
+
+    def _scene(self, it: int) -> Optional[Tuple[Optional[str], SceneBatch, Optional[torch.Tensor]]]:
+        if self.scenes is not None:
+            return None, self.scenes[it % len(self.scenes)], None
+        if not (self.teacher_cache or self.fused_ds is not None):
+            return None, self.ds.next_scene(), None
+        sid = self.ds._next_sid()
+        if self.fused_ds is not None:
+            pair = self.fused_ds.make_scene_batch_with_features(sid)
+            if pair is None:
+                return None
+            return sid, pair[0], torch.from_numpy(pair[1]).to(self.ds.device)
+        scene = self.ds.make_scene_batch(sid)
+        return None if scene is None else (sid, scene, None)
+
+    def __call__(self, it: int):
+        got = self._scene(it)
+        if got is None:
+            return None
+        sid, scene, f2d = got
+        dev, ft = scene.points.device, None
+        if self.teacher_cache and sid is not None:
+            path = os.path.join(self.teacher_cache, f"{sid}.npz")
+            if os.path.exists(path):
+                with np.load(path) as data:
+                    if f2d is None:
+                        f2d = torch.from_numpy(data["f2d"]).to(dev)
+                    ft = torch.from_numpy(data["f_teacher"]).to(dev)
+        if f2d is None:
+            with self.timer.stage("lift_2d", block_on=dev), torch.inference_mode():
+                f2d, _ = self.pipeline.lift_scene(scene)
+        if ft is None:
+            with self.timer.stage("teacher_3d", block_on=dev):
+                ft = self.pipeline.teacher_point_features(scene)
+        return sid, scene, f2d, ft
+
+
 # geopurify_tpu/run/train.py:257
 def main(argv=None) -> Optional[TrainState]:
     parser = argparse.ArgumentParser()
@@ -181,24 +265,21 @@ def main(argv=None) -> Optional[TrainState]:
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--distributed", action="store_true")
     parser.add_argument("--synthetic", action="store_true")
-    parser.add_argument("--teacher-cache", default=None)
-    parser.add_argument("--fused-features", default=None)
+    parser.add_argument("--teacher-cache", default=None,
+                        help="dir of precomputed teacher features (run/precompute.py)")
+    parser.add_argument("--fused-features", default=None,
+                        help="dir of precomputed fused 2D feature .pt files (OpenScene "
+                             "layout), the frozen 2D input in place of the lift")
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--steps-per-epoch", type=int, default=None)
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="[%(asctime)s %(filename)s:%(lineno)d] %(message)s")
-    for flag, item in ((args.distributed, "--distributed (DP / SyncBN over torch.distributed)"),
-                       (args.teacher_cache, "--teacher-cache (data layer, run/precompute.py)"),
-                       (args.fused_features, "--fused-features (data layer)")):
-        if flag:
-            raise NotImplementedError(f"{item} is not ported yet (ROADMAP Queue 1)")
-    if not args.synthetic:
+    if args.distributed:
         raise NotImplementedError(
-            "real datasets (data/loaders.SceneDataset in the trainer) are not wired in "
-            "yet (ROADMAP Queue 1); "
-            "pass --synthetic")
+            "--distributed (DP / SyncBN over torch.distributed) is not ported yet "
+            "(ROADMAP Queue 1)")
     cfg = load_config(args.preset, overrides=args.overrides, yaml_path=args.config)
     if args.epochs:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, epochs=args.epochs))
@@ -206,13 +287,33 @@ def main(argv=None) -> Optional[TrainState]:
     dev = resolve_device(args.device)
 
     init_gen = torch.Generator().manual_seed(cfg.train.manual_seed)
-    pipeline = build_pipeline(cfg, init_gen, dev)
-    from geopurify_tpu_torch.data.synthetic import make_scene_batch
+    pipeline = build_pipeline(cfg, init_gen, dev,
+                              require_teachers=not args.synthetic and not args.teacher_cache)
+    timer = StageTimer()
+    if args.synthetic:
+        from geopurify_tpu_torch.data.synthetic import make_scene_batch
 
-    scenes = [make_scene_batch(seed=i, n_points=1500, n_views=2, device=dev)
-              for i in range(max(2, n_dp))]
+        scenes = [make_scene_batch(seed=i, n_points=1500, n_views=2, device=dev)
+                  for i in range(max(2, n_dp))]
+        inputs = StepInputs(pipeline, timer, scenes=scenes)
+        n_scenes = len(scenes)
+    else:
+        from geopurify_tpu_torch.data.loaders import SceneDataset
+
+        frozen_inputs = bool(args.teacher_cache or args.fused_features)
+        ds = SceneDataset(cfg, split="train", augment=False if frozen_inputs else None,
+                          device=dev)
+        fused_ds = None
+        if args.fused_features:
+            from geopurify_tpu_torch.data.feature_loader import FusedFeatureDataset
+
+            fused_ds = FusedFeatureDataset(cfg, args.fused_features, device=dev)
+            fused_ds.base = ds
+        inputs = StepInputs(pipeline, timer, ds=ds, fused_ds=fused_ds,
+                            teacher_cache=args.teacher_cache)
+        n_scenes = len(ds)
     init_student_(pipeline.student, init_gen)
-    steps_per_epoch = args.steps_per_epoch or len(scenes) * cfg.data.loop // n_dp
+    steps_per_epoch = args.steps_per_epoch or n_scenes * cfg.data.loop // n_dp
     optimizer, schedule = make_optimizer(cfg.train, pipeline.student, steps_per_epoch)
     generator = torch.Generator(device=dev).manual_seed(cfg.train.manual_seed)
     state = TrainState(pipeline.student, optimizer, 0, generator)
@@ -227,15 +328,13 @@ def main(argv=None) -> Optional[TrainState]:
     train_step = make_train_step(pipeline)
     metrics_path = os.path.join(cfg.train.save_path, "metrics.jsonl")
     os.makedirs(cfg.train.save_path, exist_ok=True)
-    timer = StageTimer()
     t0 = time.time()
     for epoch in range(cfg.train.epochs):
         for it in range(steps_per_epoch):
-            batch = scenes[it % len(scenes)]
-            with timer.stage("lift_2d", block_on=dev), torch.inference_mode():
-                f2d, _ = pipeline.lift_scene(batch)
-            with timer.stage("teacher_3d", block_on=dev):
-                ft = pipeline.teacher_point_features(batch)
+            step_in = inputs(it)
+            if step_in is None:
+                continue            # an unusable scene: no step
+            _, batch, f2d, ft = step_in
             with timer.stage("train_step", block_on=dev):
                 loss = train_step(state, batch, f2d, ft)
             if state.step % cfg.train.print_freq == 0:

@@ -9,9 +9,11 @@ prints as one JSON line and is appended to
 ``<train.save_path>/eval_results.jsonl``, both with the JAX entry point's
 keys. The run is on the card unless ``--device cpu`` is given.
 
-Without released checkpoints the X-Decoder teacher is a zero stand-in (a
-warning says so on real data) and the student is initialised from a
-seeded generator; ``--student-ckpt`` takes a released MinkowskiEngine
+``xdecoder.ckpt`` names the released X-Decoder (converted on load with its
+text tower; ``text.tokenizer_vocab`` names CLIP's BPE merges file); without
+it the X-Decoder teacher is a zero stand-in (a warning says so on real
+data). The student is initialised from a seeded generator;
+``--student-ckpt`` takes a released MinkowskiEngine
 checkpoint (``.pth``), a checkpoint file of the port's trainer
 (``step_<n>.pt``) or its checkpoint directory (the newest step).
 Multi-process evaluation (``--distributed``) is not ported yet.

@@ -282,11 +282,15 @@ def test_augmentations_exact_for_a_seed(rng):
 
 @pytest.fixture
 def on_disk(tmp_path, rng):
+    return write_on_disk(tmp_path, rng)
+
+
+def write_on_disk(tmp_path, rng):
     """Three ScanNet-layout scenes: one with 3 views (the view bucket grows
     above max_views = 2), one with 6 (above max_views_eval = 4: the JAX
     loader's warning path), one with more points than max_points (512) and
     more voxels than max_voxels (384); cameras 3 m from the points, depth
-    3 m."""
+    3 m. Returns (root, scene ids); ``list.txt`` names all three."""
     root3d, root2d = tmp_path / "3d", tmp_path / "2d"
     os.makedirs(root3d)
     os.makedirs(root2d)

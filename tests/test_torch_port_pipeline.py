@@ -129,13 +129,16 @@ def test_lift_scene_matches_jax():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports without JAX or the JAX package,
-    the Stage-1 modules and the data layer and validation entry included."""
+    """Every module of the port imports without JAX, the JAX package or the
+    ``regex`` module, the Stage-1 modules, the data layer, the validation
+    entry, the converters and the precompute entry included."""
     stage1 = ("ops.infonce", "ops.contrastive", "ops.voxelize", "models.sonata",
               "models.lang", "data.synthetic", "run.optim", "run.train",
               "utils.checkpoint", "utils.profiling", "data.loaders", "data.ply",
               "data.cameras", "data.augment", "ops.projection", "utils.metrics",
-              "utils.visualization", "run.validate")
+              "utils.visualization", "run.validate", "utils.convert_xdecoder",
+              "utils.convert_sonata", "data.feature_loader", "data.selector",
+              "run.precompute")
     code = (
         "import importlib, pkgutil, sys\n"
         "import geopurify_tpu_torch as p\n"
@@ -144,14 +147,14 @@ def test_port_imports_no_jax():
         f"missing = [m for m in {stage1!r} if 'geopurify_tpu_torch.' + m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'geopurify_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'geopurify_tpu', 'regex'))\n"
         "assert not bad, bad\n"
         "print('ok', len([n for n in sys.modules if n.startswith('geopurify_tpu_torch')]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[1]) >= 41
+    assert int(out.stdout.split()[1]) >= 46
 
 
 def test_default_device_without_cuda_raises(monkeypatch):
