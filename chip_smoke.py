@@ -14,9 +14,11 @@ Phases (any failure exits non-zero; each prints its seconds):
 3. the Stage-2 main path at full width: ``GeoPurifyPipeline.evaluate_scene``
    at the ``scannet`` preset (FocalNet-L X-Decoder in bf16, 518-512-128
    student, kNN-96 + 19 banded smoothing rounds) on 3 bench-spec scenes
-   (P=131072, M=65536, V=8, Pv=16384, 484x648), seeded random weights,
-   counting K1's launches; plus the gather path timed on one scene's graph
-   and one more scene under torch.profiler (kernels by device time);
+   (P=131072, M=65536, V=8, Pv=16384, 484x648), seeded random weights
+   (fan-in-scaled, with the winning queries' embeddings as class prompts,
+   so that more than one class wins), counting K1's launches; plus the
+   gather path timed on one scene's graph and one more scene under
+   torch.profiler (kernels by device time);
 4. the same seeded pipeline at the small bench --smoke sizes on the card and
    on the CPU (plain versions): predictions must agree;
 5. kernel K2 (fused InfoNCE forward and backward) against its plain
@@ -45,7 +47,8 @@ Phases (any failure exits non-zero; each prints its seconds):
    1296x968 colour and 640x480 depth rendered from the points), evaluated
    at the ``scannet`` preset's buckets (P=2^20, M=2^18, Pv=2^16, V=64 and
    256) with band 6144 and a 2^21-edge residual, then the first scene at
-   ``scannet200`` (logit space, C=200) and in feature space (C=512); per
+   ``scannet200`` (logit space, C=200) and in feature space (C=512), the
+   X-Decoder seeded as in phase 12 (more than one class must win); per
    scene the host load, views / fuse_fill / pool_classify, the kNN, K1's
    launches, band_overflow and peak memory;
 11. the same path at the ``tiny`` preset on the card and on the CPU over a
@@ -66,7 +69,22 @@ Phases (any failure exits non-zero; each prints its seconds):
    the cache's cut); ``run.train.main`` with ``--teacher-cache`` (3
    steps), ``--fused-features`` (2) and live at the preset's own buckets
    (2; P=2^20, M=2^18, V=64), each with K2's forward and backward launched
-   once a step, finite losses and a checkpoint, timed per step.
+   once a step, finite losses and a checkpoint, timed per step (the
+   directly loaded route given the converter's logit scale);
+13. the parallel layer: ``run.validate.main`` over each of phase 10's two
+   scenes in a run of its own (deterministic algorithms), then two ranks
+   over gloo on the one card (``parallel.spawn``), each running (a) 3
+   data-parallel Stage-1 steps at ``scannet`` with SyncBN and K2 on a
+   bench-spec scene of its own (replicas bit-equal after every step, K2 once a step, s/step and
+   peak), and one ``tiny`` step on the card against the CPU (phase 8's
+   tolerance); (c) the view-parallel lift of a bench-spec scene's 8 views
+   against the sequential lift (counts equal, features up to consensus
+   near-ties, both times); (b) ``run.validate.main --distributed`` over the
+   two scenes (I/U/T equal exactly to those of the runs of one scene each,
+   19 K1 launches a scene, one JSON line); and (d) ``run.train.main
+   --distributed`` as a world of 1 over NCCL, launched through the
+   environment as ``torchrun`` does, 2 synthetic steps, beside the runs of
+   one scene.
 
 A K1 row at a preset's class count (or feature space's 512) that is
 slower than its library call is flagged (``FLAG:`` lines naming the preset,
@@ -80,6 +98,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -190,6 +209,12 @@ def seed_weights(pipe, seed: int, device):
     with torch.no_grad():
         for p in pipe.xdecoder.parameters():
             p.copy_(torch.randn(p.shape, generator=g, device=device) * 0.02)
+    seed_student(pipe, g, device)
+
+
+def seed_student(pipe, g: torch.Generator, device):
+    """He-normal student kernels from ``g``; biases and BatchNorm as built."""
+    with torch.no_grad():
         for name, p in pipe.student.named_parameters():
             if name.endswith("kernel"):
                 fan_in = p.shape[0] * p.shape[1]
@@ -213,6 +238,45 @@ def seed_released(pipe, seed: int, device):
             r = torch.randn(p.shape, generator=g, device=device) * 0.02
             norm = p.dim() == 1 and name.endswith("weight") and "norm" in name
             p.copy_(1 + r if norm else r)
+
+
+def seed_lecun(pipe, seed: int, device):
+    """The X-Decoder's matrices N(0, 1 / fan-in), zero biases, unit norm
+    scales, from a seed."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in pipe.xdecoder.named_parameters():
+            if p.dim() >= 2:
+                p.copy_(torch.randn(p.shape, generator=g, device=device)
+                        / float(np.prod(p.shape[1:])) ** 0.5)
+            else:
+                p.fill_(0.0 if name.endswith("bias") else 1.0)
+
+
+def query_prompts(pipe, batch, seed: int):
+    """Class prompts for a seeded X-Decoder: the embeddings of the queries
+    that win the most points of ``batch``'s first view, one a class, and a
+    random background row. Random prompts all pick the one class nearest
+    the direction the seeded queries' embeddings share."""
+    n_cls = pipe.text_embeddings.shape[0] - 1
+    with torch.inference_mode():
+        lift = pipe._view_step(batch, 0)
+        table = lift.embed_table[0]                     # [Q + 1, C], L2-normed
+        Q = table.shape[0] - 1
+        top = torch.bincount(lift.winner[0].long(), minlength=Q + 1)[:Q].topk(n_cls).indices
+    bg = text_embeddings(1, table.shape[1], seed).to(table.device)
+    pipe.text_embeddings = torch.cat([table[top], bg])
+
+
+def seed_at_scale(logit_scale: float):
+    """``seed_released`` and the logit scale ``logit_scale``: a pipeline built
+    without a checkpoint takes the exp of the language tower's parameter
+    with torch (as JAX does), the X-Decoder converter with numpy, and the
+    two may be an ulp apart; a comparison of the routes sets one scale."""
+    def seed(pipe, seed: int, device):
+        seed_released(pipe, seed, device)
+        pipe.logit_scale = logit_scale
+    return seed
 
 
 def seed_small(pipe, seed: int):
@@ -243,7 +307,12 @@ def phase_main(cfg_mod, pipe_mod, batch_mod, band_mod, pool_mod, n_scenes=3):
     text = text_embeddings(n_cls + 1, cfg.xdecoder.hidden_dim, seed=0)
     t0 = time.perf_counter()
     pipe = pipe_mod.GeoPurifyPipeline(cfg, text, 20.0, device="cuda")
-    seed_weights(pipe, 1, "cuda")
+    # the bench spec maps each point to a random pixel of a noise image, so
+    # the smoothing averages neighbours' unrelated classes: seed_released
+    # with random prompts predicts one class (PERF.md §6); these weights
+    # and prompts keep a few classes through the 19 rounds
+    seed_lecun(pipe, 1, "cuda")
+    seed_student(pipe, torch.Generator(device="cuda").manual_seed(2), "cuda")
     n_params = sum(p.numel() for p in pipe.xdecoder.parameters())
     log(f"pipeline built in {time.perf_counter() - t0:.1f} s "
         f"(X-Decoder {n_params / 1e6:.1f} M parameters, {cfg.xdecoder.dtype})")
@@ -251,6 +320,7 @@ def phase_main(cfg_mod, pipe_mod, batch_mod, band_mod, pool_mod, n_scenes=3):
     sp = BENCH_SPEC
     scenes = [batch_mod.build_scene(i + 1, sp["P"], sp["M"], sp["V"], sp["Pv"], hw)
               for i in range(n_scenes)]
+    query_prompts(pipe, batch_mod.SceneBatch.from_numpy(scenes[0], device="cuda"), seed=7)
     torch.cuda.reset_peak_memory_stats()
     band_mod.banded_window_matmul.launches = 0
     per_scene = []
@@ -263,10 +333,13 @@ def phase_main(cfg_mod, pipe_mod, batch_mod, band_mod, pool_mod, n_scenes=3):
         dt = time.perf_counter() - t
         logits, pred = out["logits"], out["pred"]
         st = out["stage_seconds"]
-        per_scene.append(dict(seconds=dt, band_overflow=out["band_overflow"], **st))
+        predicted = int(torch.unique(pred[batch.point_valid]).numel())
+        per_scene.append(dict(seconds=dt, band_overflow=out["band_overflow"],
+                              predicted=predicted, **st))
         log(f"scene {i}: {dt:.3f} s (views {st['views']:.3f}, fuse+fill "
             f"{st['fuse_fill']:.3f}, pool+classify {st['pool_classify']:.3f}) "
-            f"band_overflow={out['band_overflow']}")
+            f"band_overflow={out['band_overflow']}, {predicted} classes predicted")
+        assert predicted > 1, "one class predicted: the seeded weights say nothing"
         assert out["band_overflow"] == 0, "banded operator overflowed"
         assert pred.shape == (sp["P"],) and logits.shape == (sp["P"], n_cls)
         assert torch.isfinite(logits).all(), "non-finite logits"
@@ -884,14 +957,14 @@ class Instrument:
     sizes), ``GeoPurifyPipeline.evaluate_scene`` (run with ``profile=True``
     for the stage split; K1 launches, band overflow, peak device memory,
     view coverage and the classes predicted) and the smoothing's kNN
-    (synchronised timer). ``build_pipeline`` gives the X-Decoder phase 3's
-    seeded weights (the entry point's stand-in is all zeros, which would
+    (synchronised timer). ``build_pipeline`` gives the X-Decoder
+    ``seed_released``'s weights (the entry point's stand-in is all zeros, which would
     send zeros through the lift and the smoothing), or those of ``seed``
     (None: an ``xdecoder.ckpt`` run keeps the converted weights). Each
     scene's per-point predictions and logits are kept on the host in
     ``preds``. Restores everything on exit."""
 
-    def __init__(self, mods, seed=seed_weights):
+    def __init__(self, mods, seed=seed_released):
         self.mods, self.scenes, self.preds, self._undo = mods, [], [], []
         self.build_s = None
         self.seed = seed
@@ -975,7 +1048,7 @@ PRESET_OVERRIDES = ["pooling.band=6144", "pooling.max_residual=2097152"]
 
 
 def run_validate(mods, preset: str, root: Path, n_scenes: int, min_views: int,
-                 extra=(), seed=seed_weights):
+                 extra=(), seed=seed_released):
     """``run.validate.main`` on the card over the first ``n_scenes`` of
     ``root``; the K1 count is set to 0 just before and read just after."""
     band = mods["band"]
@@ -1006,6 +1079,7 @@ def run_validate(mods, preset: str, root: Path, n_scenes: int, min_views: int,
         assert r["band_overflow"] == 0, "banded operator overflowed"
         assert r["k1_launches"] == cfg.pooling.num_iterations, r["k1_launches"]
         assert r["finite"] and r["classes"] == n_cls, r
+        assert r["predicted"] > 1, "one class predicted: the seeded weights say nothing"
     log(f"{preset} {' '.join(extra)}: run.validate.main over {len(ins.scenes)} scenes in {wall:.1f} s; "
         f"K1 launches {launches}; result {json.dumps(result)[:400]}")
     assert len(ins.scenes) == n_scenes and launches == n_scenes * cfg.pooling.num_iterations
@@ -1018,21 +1092,20 @@ def run_validate(mods, preset: str, root: Path, n_scenes: int, min_views: int,
                 preds=ins.preds, build_s=ins.build_s)
 
 
-def phase_preset_validation(mods, views=(36, 140)):
-    """Two scenes (36 views: the V=64 bucket; 140 views: V=256) through
-    ``scannet``, then the first at ``scannet200`` and in feature space."""
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        t = time.perf_counter()
-        write_dataset(root, mods["batch"], views, 1 << 20, 1 << 18, frame_stride=20,
-                      color_wh=(1296, 968), depth_wh=(640, 480), device="cuda", seed0=21)
-        write_s = time.perf_counter() - t
-        log(f"wrote {len(views)} ScanNet-layout scenes ({views} views) in {write_s:.1f} s")
-        scannet = run_validate(mods, "scannet", root, len(views), min_views=32)
-        assert [r["V"] for r in scannet["scenes"]] == [64, 256], scannet["scenes"]
-        scannet200 = run_validate(mods, "scannet200", root, 1, min_views=32)
-        feature = run_validate(mods, "scannet", root, 1, min_views=32,
-                               extra=["pooling.smooth_space=feature"])
+def phase_preset_validation(mods, root: Path, views=(36, 140)):
+    """Two scenes (36 views: the V=64 bucket; 140 views: V=256) written under
+    ``root`` (phase 13 reads them again) through ``scannet``, then the first
+    at ``scannet200`` and in feature space."""
+    t = time.perf_counter()
+    write_dataset(root, mods["batch"], views, 1 << 20, 1 << 18, frame_stride=20,
+                  color_wh=(1296, 968), depth_wh=(640, 480), device="cuda", seed0=21)
+    write_s = time.perf_counter() - t
+    log(f"wrote {len(views)} ScanNet-layout scenes ({views} views) in {write_s:.1f} s")
+    scannet = run_validate(mods, "scannet", root, len(views), min_views=32)
+    assert [r["V"] for r in scannet["scenes"]] == [64, 256], scannet["scenes"]
+    scannet200 = run_validate(mods, "scannet200", root, 1, min_views=32)
+    feature = run_validate(mods, "scannet", root, 1, min_views=32,
+                           extra=["pooling.smooth_space=feature"])
     for rec in (scannet, scannet200, feature):
         del rec["preds"]
     return dict(write_s=write_s, scannet=scannet, scannet200=scannet200, feature=feature)
@@ -1181,7 +1254,8 @@ def released_xdecoder(mods, root: Path):
     """The full-width ``scannet`` X-Decoder with ``seed_released``'s weights
     and the language tower ``build_pipeline`` initialises without a
     checkpoint, written out in the reference layout
-    (``xdecoder_focall_last.pt``)."""
+    (``xdecoder_focall_last.pt``); returns its path, its MB and the logit
+    scale the converter gives it."""
     cfg = mods["cfg"].load_config("scannet")
     t = cfg.text
     lang = mods["lang"].LanguageEncoder(t.vocab_size, t.width, t.layers, t.heads,
@@ -1195,7 +1269,8 @@ def released_xdecoder(mods, root: Path):
     n = sum(p.numel() for p in xdec.parameters()) + sum(p.numel() for p in lang.parameters())
     log(f"reference-layout X-Decoder + language tower: {n / 1e6:.1f} M parameters, "
         f"{mb:.0f} MB written in {time.perf_counter() - t0:.1f} s")
-    return path, mb
+    # the converter's logit scale: numpy's exp of the tower's f32 parameter
+    return path, mb, float(np.exp(lang.logit_scale.detach().numpy()))
 
 
 def released_sonata(mods, root: Path, batch):
@@ -1290,8 +1365,8 @@ def run_train_mode(mods, label: str, args, steps: int):
         times.append(dict(inputs_s=dt, usable=out is not None))
         return out
 
-    def timed_make_step(pipeline):
-        step = make_step(pipeline)
+    def timed_make_step(pipeline, *a):
+        step = make_step(pipeline, *a)
 
         def run(*a):
             loss, dt = synced(lambda: step(*a))
@@ -1341,9 +1416,10 @@ def phase_released(mods, views=(36, 36)):
         data = dataset_overrides(root) + [f"data.train_scene_list={root / 'list.txt'}"]
 
         # 1. Stage 2 through xdecoder.ckpt against the same weights loaded directly
-        xpath, x_mb = released_xdecoder(mods, root)
+        xpath, x_mb, x_scale = released_xdecoder(mods, root)
         with deterministic():
-            direct = run_validate(mods, "scannet", root, 1, min_views=32, seed=seed_released)
+            direct = run_validate(mods, "scannet", root, 1, min_views=32,
+                                  seed=seed_at_scale(x_scale))
             conv = run_validate(mods, "scannet", root, 1, min_views=32,
                                 extra=[f"xdecoder.ckpt={xpath}"], seed=None)
         (pc, lc), (pd, ld) = conv.pop("preds")[0], direct.pop("preds")[0]
@@ -1429,11 +1505,270 @@ def phase_released(mods, views=(36, 36)):
                                   for i in (0, 1)))
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False — needs a CUDA card",
-              file=sys.stderr)
-        return 1
+# ---------------------------------------------------------------------------
+# phase 13: the parallel layer on the card
+# ---------------------------------------------------------------------------
+
+def dp_tiny_card_vs_cpu(mods, mesh, dev):
+    """One data-parallel step at the ``tiny`` preset on the card and on the
+    CPU, over the same gloo group, with this rank's same scene, features
+    and pairs (TF32 off): loss, averaged gradients and running statistics
+    within phase 8's tolerance; K2 launched once on the card."""
+    cfg = mods["cfg"].load_config("tiny", overrides=["contrastive.fused_loss=true"])
+    cc, nce = cfg.contrastive, mods["nce"]
+    text = text_embeddings(len(cfg.data.all_label) + 1, cfg.xdecoder.hidden_dim, seed=2)
+    make = mods["synth"].make_scene_batch
+    scenes = {d: make(seed=3 + mesh.rank, n_points=1500, n_views=2, device=d)
+              for d in ("cpu", dev)}
+    P = scenes["cpu"].points.shape[0]
+    rng = np.random.default_rng(8 + mesh.rank)
+    f2d = torch.from_numpy(rng.normal(size=(P, cfg.pooling.feature_dim)).astype(np.float32))
+    ft = torch.from_numpy(rng.normal(size=(P, 24)).astype(np.float32))
+    with torch.no_grad():
+        pairs = mods["ctr"].sample_contrastive_pairs_hybrid(
+            torch.Generator().manual_seed(9 + mesh.rank), ft, scenes["cpu"].point_valid,
+            coords=scenes["cpu"].points, num_anchors=cc.num_anchors,
+            num_macro=cc.num_macro_negatives, num_micro=cc.num_micro_negatives,
+            spatial_k=cc.spatial_knn_k)
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for d in ("cpu", dev):
+            pipe = mods["pipe"].GeoPurifyPipeline(cfg, text, 20.0, device=d)
+            nce.info_nce_fwd.launches = nce.info_nce_bwd.launches = 0
+            res = mods["dryrun"].stage1_dp(pipe, mesh, scenes[d], f2d.to(d), ft.to(d),
+                                           steps=1, seed=6,
+                                           pairs=type(pairs)(*(x.to(d) for x in pairs)))
+            out[str(d)] = (res["losses"][0],
+                           {k: p.grad.cpu() for k, p in pipe.student.named_parameters()},
+                           {k: b.cpu() for k, b in pipe.student.named_buffers()},
+                           (nce.info_nce_fwd.launches, nce.info_nce_bwd.launches))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    (loss_c, grads_c, stats_c, _), (loss_g, grads_g, stats_g, launches) = (
+        out["cpu"], out[str(dev)])
+    top = max(g.abs().max().item() for g in grads_c.values())
+    worst = 0.0
+    for name, gc in grads_c.items():
+        gg, scale = grads_g[name], gc.abs().max().item()
+        if scale < 1e-5 * top:
+            # a conv bias ahead of train-mode BatchNorm: 0 up to rounding
+            assert gg.abs().max().item() < 1e-5 * top, name
+            continue
+        worst = max(worst, (gg - gc).abs().max().item() / scale)
+    stats = max((stats_g[k] - v).abs().max().item() for k, v in stats_c.items())
+    return dict(loss_rel=abs(loss_g - loss_c) / abs(loss_c), worst_grad_rel=worst,
+                stats_max_diff=stats, k2_launches=launches)
+
+
+def phase13_rank(dev, root: str, n_steps: int):
+    """One of two ranks over gloo on the one card (``parallel.spawn``): (a)
+    ``n_steps`` data-parallel Stage-1 steps at ``scannet`` on a bench-spec
+    scene of its own, and the tiny step card against CPU; (c) the
+    view-parallel lift of one bench-spec scene; (b) ``run.validate.main
+    --distributed`` over the scenes under ``root``. Counts are set to 0 just
+    before each path and read just after."""
+    mods = load_mods()
+    cfg_mod, pipe_mod, batch_mod, dryrun = (mods[k] for k in ("cfg", "pipe", "batch",
+                                                              "dryrun"))
+    nce, band = mods["nce"], mods["band"]
+    mesh = mods["mesh"].make_mesh()
+    sp = BENCH_SPEC
+    rec = {}
+
+    # (a) Stage 1: one scene a rank, SyncBN, K2
+    cfg = cfg_mod.load_config("scannet", overrides=["contrastive.fused_loss=true"])
+    hw = tuple(cfg.xdecoder.mask_shape)
+    text = text_embeddings(len(cfg.data.all_label) + 1, cfg.xdecoder.hidden_dim, seed=0)
+    pipe = pipe_mod.GeoPurifyPipeline(cfg, text, 20.0, device=dev)
+    batch = batch_mod.SceneBatch.from_numpy(
+        batch_mod.build_scene(11 + mesh.rank, sp["P"], sp["M"], sp["V"], sp["Pv"], hw),
+        device=dev)
+    g = torch.Generator(device=dev).manual_seed(30 + mesh.rank)
+    f2d = torch.randn((sp["P"], cfg.pooling.feature_dim), generator=g, device=dev)
+    ft = torch.randn((sp["P"], 1088), generator=g, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    nce.info_nce_fwd.launches = nce.info_nce_bwd.launches = 0
+    dp = dryrun.stage1_dp(pipe, mesh, batch, f2d, ft, steps=n_steps, seed=2)
+    dp.update(k2_launches=(nce.info_nce_fwd.launches, nce.info_nce_bwd.launches),
+              peak_bytes=torch.cuda.max_memory_allocated(dev))
+    rec["dp"] = dp
+    del pipe, batch, f2d, ft
+    torch.cuda.empty_cache()
+    rec["dp_tiny"] = dp_tiny_card_vs_cpu(mods, mesh, dev)
+
+    # (c) the view-parallel lift, the rank's 4 views a micro-batch on both sides
+    cfg = cfg_mod.load_config("scannet", overrides=["xdecoder.view_batch=4"])
+    pipe = pipe_mod.GeoPurifyPipeline(cfg, text, 20.0, device=dev)
+    seed_released(pipe, 1, dev)
+    batch = batch_mod.SceneBatch.from_numpy(
+        batch_mod.build_scene(21, sp["P"], sp["M"], sp["V"], sp["Pv"], hw), device=dev)
+    with deterministic():
+        rec["lift"] = dryrun.view_parallel_lift(pipe, batch, mesh.group)
+    del pipe, batch
+    torch.cuda.empty_cache()
+
+    # (b) run.validate.main --distributed
+    rec["validate"] = validate_capturing(mods, root, ["--distributed"])
+    return rec
+
+
+def validate_capturing(mods, root: str, flags, n_scenes=None):
+    """``run.validate.main`` at ``scannet`` over the scenes under ``root``
+    (deterministic algorithms; the X-Decoder as ``seed_released``): its
+    result, the summed I/U/T histograms, what it printed, K1's launches and
+    the per-scene records."""
+    import contextlib
+    import io
+
+    validate, band = mods["validate"], mods["band"]
+    seen = {}
+    allreduce = validate.allreduce_meter_across_hosts
+
+    def recording(meter):
+        meter = allreduce(meter)
+        seen["iut"] = np.stack([meter.intersection, meter.union, meter.target])
+        return meter
+
+    args = flags + ["--preset", "scannet"] + PRESET_OVERRIDES + dataset_overrides(Path(root))
+    if n_scenes:
+        args += ["--max-scenes", str(n_scenes)]
+    out = io.StringIO()
+    validate.allreduce_meter_across_hosts = recording
+    band.banded_window_matmul.launches = 0
+    try:
+        with deterministic(), Instrument(mods) as ins, contextlib.redirect_stdout(out):
+            t = time.perf_counter()
+            result = validate.main(args)
+            wall = time.perf_counter() - t
+    finally:
+        validate.allreduce_meter_across_hosts = allreduce
+    return dict(result=result, iut=seen["iut"], stdout=out.getvalue(), wall_s=wall,
+                k1_launches=band.banded_window_matmul.launches, scenes=ins.scenes)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_parallel(mods, root: Path, n_steps=3):
+    """Phase 13: the single-process validation of phase 10's scenes (the
+    reference), the two gloo ranks of ``phase13_rank``, then
+    ``run.train.main --distributed`` as a world of 1 over NCCL, launched as
+    ``torchrun`` would (``env://``). The reference is one run a scene
+    (``--shard-idx r --shard-total 2``): the loader subsamples each view's
+    visible points from its own generator, whose state depends on the
+    scenes it loaded before, so rank r, which loads scene r only, matches
+    a run that loads scene r only. (d) runs beside the reference runs."""
+    nccl_dir = tempfile.TemporaryDirectory()
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    t_nccl = time.perf_counter()
+    nccl_log = open(Path(nccl_dir.name) / "log.txt", "w+")
+    nccl = subprocess.Popen(
+        [sys.executable, "-m", "geopurify_tpu_torch.run.train", "--distributed",
+         "--synthetic", "--preset", "scannet", "--epochs", "1", "--steps-per-epoch", "2",
+         "contrastive.fused_loss=true", "train.print_freq=1",
+         f"train.save_path={nccl_dir.name}"],
+        cwd=HERE, env=env, stdout=nccl_log, stderr=subprocess.STDOUT)
+    try:
+        shards = [validate_capturing(mods, str(root),
+                                     ["--shard-idx", str(r), "--shard-total", "2"])
+                  for r in range(2)]
+        for sh in shards:
+            for sc in sh["scenes"]:
+                log(f"(b) one run, {sc['sid']}: load {sc['load_s']:.2f} s, evaluate "
+                    f"{sc['seconds']:.2f} s, {sc['predicted']} classes predicted")
+        single = dict(iut=sum(sh["iut"] for sh in shards),
+                      wall_s=sum(sh["wall_s"] for sh in shards), shards=shards)
+        # (d) a world of 1 over NCCL through the CLI, as torchrun launches it
+        with nccl_dir, nccl_log:
+            nccl.wait(timeout=600)
+            nccl_s = time.perf_counter() - t_nccl
+            nccl_log.seek(0)
+            out = nccl_log.read()
+            assert nccl.returncode == 0, out[-4000:]
+            recs = [json.loads(x) for x in
+                    (Path(nccl_dir.name) / "metrics.jsonl").read_text().splitlines()]
+            assert "(nccl)" in out and [r["step"] for r in recs] == [1, 2]
+            assert all(np.isfinite(r["loss"]) for r in recs)
+        log(f"(d) run.train.main --distributed over NCCL (world 1), beside the reference "
+            f"runs and done within their {nccl_s:.1f} s: 2 steps in "
+            f"{recs[-1]['elapsed_s']:.2f} s of its loop; losses {[r['loss'] for r in recs]}")
+        t = time.perf_counter()
+        ranks = mods["mesh"].spawn(phase13_rank, 2, "cuda", backend="gloo",
+                                   args=(str(root), n_steps), timeout_s=900)
+        ranks_s = time.perf_counter() - t
+        rec = dict(single=single, ranks=ranks, ranks_s=ranks_s)
+
+        # (a)
+        for r, rr in enumerate(ranks):
+            dp = rr["dp"]
+            steps = ", ".join(f"{x:.3f}" for x in dp["step_seconds"])
+            log(f"(a) rank {r}: DP Stage-1 steps {steps} s; losses {dp['losses']}; "
+                f"replicas bit-equal {dp['replicas_equal']}; K2 launches {dp['k2_launches']}; "
+                f"peak {dp['peak_bytes'] / 2**30:.2f} GiB")
+            assert all(dp["replicas_equal"]) and np.isfinite(dp["losses"]).all(), dp
+            assert dp["k2_launches"] == (n_steps, n_steps), dp["k2_launches"]
+            t8 = rr["dp_tiny"]
+            log(f"(a) rank {r}: tiny DP step card vs CPU: loss rel {t8['loss_rel']:.2e}, worst "
+                f"gradient rel {t8['worst_grad_rel']:.2e}, running stats max diff "
+                f"{t8['stats_max_diff']:.2e}; K2 launches {t8['k2_launches']}")
+            assert t8["loss_rel"] <= 1e-5 and t8["worst_grad_rel"] <= 1e-4
+            assert t8["stats_max_diff"] <= 1e-5 and t8["k2_launches"] == (1, 1)
+        assert ranks[0]["dp"]["losses"] == ranks[1]["dp"]["losses"]
+
+        # (c)
+        for r, rr in enumerate(ranks):
+            lf = rr["lift"]
+            log(f"(c) rank {r}: view-parallel lift {lf['sharded_s']:.3f} s against the "
+                f"sequential {lf['sequential_s']:.3f} s; counts equal {lf['counts_equal']}; "
+                f"features max |diff| {lf['max_abs_diff']:.3e}, {lf['n_beyond']} of "
+                f"{lf['seen']} seen points beyond 2e-3 (consensus near-ties)")
+            assert lf["counts_equal"] and lf["finite"] and lf["seen"] > 0
+            assert lf["n_beyond"] <= 1e-3 * lf["seen"], lf
+
+        # (b)
+        for r, rr in enumerate(ranks):
+            v = rr["validate"]
+            for sc in v["scenes"]:
+                log(f"(b) rank {r} {sc['sid']}: load {sc['load_s']:.2f} s, evaluate "
+                    f"{sc['seconds']:.2f} s (views {sc['views']}, K1 {sc['k1_launches']}), peak "
+                    f"{sc['peak_bytes'] / 2**30:.2f} GiB, {sc['predicted']} classes predicted")
+                assert sc["k1_launches"] == 19 and sc["predicted"] > 1, sc
+            assert v["k1_launches"] == 19 * len(v["scenes"]) and len(v["scenes"]) == 1
+            np.testing.assert_array_equal(v["iut"], single["iut"])
+        lines = [rr["validate"]["stdout"].strip().splitlines() for rr in ranks]
+        assert len(lines[0]) == 1 and lines[1] == []
+        result = ranks[0]["validate"]["result"]
+        assert json.loads(lines[0][0]) == json.loads(json.dumps(result))
+        log(f"(b) run.validate.main --distributed: I/U/T equal to the runs of one scene "
+            f"each ({single['wall_s']:.1f} s of validate.main there; the ranks {ranks_s:.1f} s "
+            f"for (a)-(c) and (b) with start-up); mIoU {result['summary']['all']['mIoU']}")
+
+        for rr in ranks:
+            del rr["validate"]["scenes"]
+        rec.update(nccl_s=nccl_s, nccl_metrics=recs,
+                   k1_launches=sum(rr["validate"]["k1_launches"] for rr in ranks),
+                   k2_launches=tuple(sum(rr["dp"]["k2_launches"][i] for rr in ranks)
+                                     for i in (0, 1)))
+        for sh in shards:
+            del sh["scenes"]
+        return rec
+    finally:
+        if nccl.poll() is None:
+            nccl.kill()
+            nccl.wait()
+
+
+def load_mods():
+    """The port's modules by short name (the rank processes of phase 13
+    import them anew)."""
     sys.path.insert(0, str(HERE))
     from geopurify_tpu_torch import config as cfg_mod
     from geopurify_tpu_torch.data import batch as batch_mod
@@ -1448,19 +1783,34 @@ def main() -> int:
     from geopurify_tpu_torch.ops import infonce as nce_mod
     from geopurify_tpu_torch.ops import knn as knn_mod
     from geopurify_tpu_torch.ops import pooling as pool_mod
+    from geopurify_tpu_torch.parallel import mesh as mesh_mod
+    from geopurify_tpu_torch.run import dryrun as dryrun_mod
     from geopurify_tpu_torch.run import optim as optim_mod
     from geopurify_tpu_torch.run import precompute as precompute_mod
     from geopurify_tpu_torch.run import train as train_mod
     from geopurify_tpu_torch.run import validate as validate_mod
     from geopurify_tpu_torch.utils import convert_sonata as convs_mod
     from geopurify_tpu_torch.utils import convert_xdecoder as convx_mod
-    from geopurify_tpu_torch.utils.cuda_build import SOURCES, build_all
 
-    mods = dict(cfg=cfg_mod, batch=batch_mod, synth=synth_mod, pipe=pipe_mod,
+    return dict(cfg=cfg_mod, batch=batch_mod, synth=synth_mod, pipe=pipe_mod,
                 student=student_mod, ctr=ctr_mod, nce=nce_mod, knn=knn_mod,
                 optim=optim_mod, train=train_mod, loaders=loaders_mod,
                 validate=validate_mod, pool=pool_mod, band=band_mod, lang=lang_mod,
-                xdec=xdec_mod, precompute=precompute_mod, convx=convx_mod, convs=convs_mod)
+                xdec=xdec_mod, precompute=precompute_mod, convx=convx_mod, convs=convs_mod,
+                mesh=mesh_mod, dryrun=dryrun_mod)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False — needs a CUDA card",
+              file=sys.stderr)
+        return 1
+    mods = load_mods()
+    band_mod, nce_mod, train_mod = mods["band"], mods["nce"], mods["train"]
+    cfg_mod, pipe_mod, batch_mod, pool_mod = (mods[k] for k in ("cfg", "pipe", "batch",
+                                                                 "pool"))
+    from geopurify_tpu_torch.utils.cuda_build import SOURCES, build_all
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
@@ -1495,9 +1845,12 @@ def main() -> int:
     train_rec = run("7 run.train.main", phase_train_main, nce_mod, train_mod)
     stage1_small = run("8 Stage-1 card vs CPU", phase_stage1_small, mods)
     k1_wide = run("9 K1 wide", phase_k1_wide, band_mod)
-    preset = run("10 preset-scale validation", phase_preset_validation, mods)
-    val_small = run("11 validation card vs CPU", phase_validation_small, mods)
-    released = run("12 released checkpoints, on-disk Stage 1", phase_released, mods)
+    with tempfile.TemporaryDirectory() as scenes10:
+        preset = run("10 preset-scale validation", phase_preset_validation, mods,
+                     Path(scenes10))
+        val_small = run("11 validation card vs CPU", phase_validation_small, mods)
+        released = run("12 released checkpoints, on-disk Stage 1", phase_released, mods)
+        parallel = run("13 parallel layer", phase_parallel, mods, Path(scenes10))
 
     # K1 at every shape a main path launched it: the bench-spec scenes
     # (phase 3), the scannet, scannet200 and feature-space preset-scale
@@ -1528,8 +1881,13 @@ def main() -> int:
             log(f"FLAG: {name} ({K1_PRESETS[C]}) takes {r['ms']:.4f} ms a launch, "
                 f"{r['ms'] / r['library_ms']:.2f}x torch.bmm over gathered windows "
                 f"({r['library_ms']:.4f} ms)")
-    # phase 6's step, and phase 12's run.train.main over on-disk scenes (the
-    # same A=4096, NEG=63, E=128 shape)
+    # phase 13's run.validate.main --distributed, one 36- or 140-view scene a rank
+    k1_rows.append(dict(name="banded_window_matmul[M=262144,band=6144,C=19;"
+                             "validate --distributed, 2 ranks]",
+                        launches=parallel["k1_launches"], **k1_base,
+                        **k1_wide[(1 << 18, 6144, 19)]))
+    # phase 6's step, phase 12's run.train.main over on-disk scenes and
+    # phase 13's data-parallel steps (the same A=4096, NEG=63, E=128 shape)
     k2_rows = [dict(name=label, route="cuda", source="geopurify_tpu_torch/csrc/infonce.cu",
                     replaces=f"geopurify_tpu/ops/pallas_infonce.py:{line}",
                     launches=launches, **k2["rows"][name])
@@ -1539,12 +1897,16 @@ def main() -> int:
                    ("info_nce_fwd", "info_nce_fwd[run.train.main on-disk]", 128,
                     released["k2_launches"][0]),
                    ("info_nce_bwd", "info_nce_bwd[run.train.main on-disk]", 146,
-                    released["k2_launches"][1]))]
+                    released["k2_launches"][1]),
+                   ("info_nce_fwd", "info_nce_fwd[data-parallel, 2 ranks]", 128,
+                    parallel["k2_launches"][0]),
+                   ("info_nce_bwd", "info_nce_bwd[data-parallel, 2 ranks]", 146,
+                    parallel["k2_launches"][1]))]
     record = dict(card=smi, phase_seconds=phase_s, k1=k1, main=main_rec, small=small,
                   k2=k2, stage1=stage1, train_main=train_rec, stage1_small=stage1_small,
                   k1_wide={str(k): v for k, v in k1_wide.items()},
                   k1_behind_library=k1_behind, preset=preset,
-                  validation_small=val_small, released=released)
+                  validation_small=val_small, released=released, parallel=parallel)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))

@@ -341,6 +341,12 @@ def _coerce(dc_field_type: Any, current: Any, value: Any) -> Any:
     type name and the current value's runtime type.
     """
     tname = dc_field_type if isinstance(dc_field_type, str) else str(dc_field_type)
+    if (tname == "bool" or isinstance(current, bool)) and isinstance(value, str):
+        # ``key=false`` on the command line: literal_eval leaves the string,
+        # which is truthy (the JAX package keeps it so; the port parses it)
+        if value.lower() not in ("true", "false"):
+            raise ValueError(f"not a boolean: {value!r}")
+        return value.lower() == "true"
     if "Tuple" in tname or "tuple" in tname or isinstance(current, tuple):
         return tuple(value) if isinstance(value, (list, tuple)) else (value,)
     if ("float" in tname or isinstance(current, float)) and isinstance(value, int):

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from geopurify_tpu_torch.config import GeoPurifyConfig
-from geopurify_tpu_torch.data.loaders import SceneDataset, deterministic_keep, load_scene_any
+from geopurify_tpu_torch.data.loaders import SceneDataset, load_scene_any
 
 
 # geopurify_tpu/data/feature_loader.py:26
@@ -77,19 +77,20 @@ class FusedFeatureDataset:
     # geopurify_tpu/data/feature_loader.py:82
     def make_scene_batch_with_features(self, sid: str):
         """(SceneBatch, f2d [max_points, C] f32 numpy): the fused features
-        row-aligned to the batch's deterministic point subsample and
-        padding, the frozen 2D input of ``stage1_loss``; None when the scene
-        has no feature file or is unusable. Scenes without views are kept:
-        the features replace the lift."""
+        row-aligned to the batch, the frozen 2D input of ``stage1_loss``;
+        None when the scene has no feature file or is unusable. Scenes
+        without views are kept: the features replace the lift. Row i is
+        the feature of the batch's point i, through the point cap and the
+        voxel budget (the JAX version indexes the file by the cap alone, and
+        its rows slip past the first point the budget drops)."""
         fused = self.load(sid)
         if fused is None:
             return None
-        batch = self.base.make_scene_batch(sid, require_views=False)
-        if batch is None:
+        got = self.base.make_scene_batch(sid, require_views=False, with_rows=True)
+        if got is None:
             return None
-        P = self.cfg.data.max_points
-        keep = deterministic_keep(sid, len(fused.xyz), P)
-        feats = fused.point_feats[keep]
-        padded = np.zeros((P, feats.shape[1]), np.float32)
+        batch, rows = got
+        feats = fused.point_feats[rows]
+        padded = np.zeros((self.cfg.data.max_points, feats.shape[1]), np.float32)
         padded[: len(feats)] = feats
         return batch, padded

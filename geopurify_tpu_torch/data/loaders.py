@@ -181,7 +181,9 @@ class SceneDataset:
         self.cfg = cfg
         self.split = split
         self.device = resolve_device(device)
+        self.seed = seed
         self.rng = np.random.default_rng(seed)
+        self._order_rng = self.rng
         self.augment: Optional[Compose] = None
         if augment is None:
             augment = split == "train"
@@ -207,6 +209,16 @@ class SceneDataset:
         self._pos = 0
         self._epoch = 0
         self._prefetcher: Optional[_Prefetcher] = None
+
+    def split_streams(self, rank: int) -> None:
+        """For data parallelism over ranks that each hold a dataset: the
+        scene order takes a generator of its own, seeded alike on every
+        rank, so that ``_next_sid`` gives every rank the same ids whatever
+        each rank loads; augmentation and view subsampling draw from a
+        generator of ``rank``."""
+        self._order_rng = np.random.default_rng(self.seed)
+        self.rng = np.random.default_rng([self.seed, rank])
+        self.voxelizer.rng = self.rng
 
     # ----------------------------------------------------------------- paths
     # geopurify_tpu/data/loaders.py:241
@@ -247,7 +259,12 @@ class SceneDataset:
 
     # ----------------------------------------------------------------- build
     # geopurify_tpu/data/loaders.py:276
-    def make_scene_batch(self, sid: str, require_views: bool = True) -> Optional[SceneBatch]:
+    def make_scene_batch(self, sid: str, require_views: bool = True,
+                         with_rows: bool = False):
+        """The scene's batch (None when unusable). ``with_rows``: also the
+        index of each valid point row into the scene's points, after the
+        point cap and the voxel budget (``(batch, rows)``), which rows of a
+        per-point file follow."""
         cfg = self.cfg
         fus = cfg.fusion
         dev = self.device
@@ -272,6 +289,7 @@ class SceneDataset:
         # cap points (static bucket); without augmentation the subsample is
         # deterministic per scene, so row-aligned per-scene files agree
         P = cfg.data.max_points
+        src = np.arange(len(xyz))               # each row's point in the scene
         if len(xyz) > P:
             if self.augment is not None:
                 keep = self.rng.choice(len(xyz), P, replace=False)
@@ -279,6 +297,7 @@ class SceneDataset:
             else:
                 keep = deterministic_keep(sid, len(xyz), P)
             xyz, rgb, normal, label = xyz[keep], rgb[keep], normal[keep], label[keep]
+            src = keep
         n_pts = len(xyz)
 
         # cameras + views: the points cross to the device once, every view
@@ -354,6 +373,7 @@ class SceneDataset:
             xyz, rgb, normal, label = (a[keep_pts] for a in (xyz, rgb, normal, label))
             geom = geom[keep_pts]
             point2voxel = point2voxel[keep_pts]
+            src = src[keep_pts]
             views = [(c, r[keep_t], co[keep_t], vi[keep_pts]) for c, r, co, vi in views]
             voxel_coords = voxel_coords[:M_budget]
             M = M_budget
@@ -400,7 +420,7 @@ class SceneDataset:
         def t(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-        return SceneBatch(
+        batch = SceneBatch(
             points=t(pad_to(xyz.astype(np.float32), P)),
             point_valid=t(pvalid),
             geom_feats=t(pad_to(geom, P)),
@@ -415,6 +435,7 @@ class SceneDataset:
             view_rows=vrows_t,
             view_cols=vcols_t,
         )
+        return (batch, src) if with_rows else batch
 
     # ------------------------------------------------------------- iteration
     # geopurify_tpu/data/loaders.py:450
@@ -431,7 +452,7 @@ class SceneDataset:
             self._pos = 0
             self._epoch += 1
             if self.split == "train":
-                self.rng.shuffle(self._order)
+                self._order_rng.shuffle(self._order)
         sid = self.scene_ids[self._order[self._pos]]
         self._pos += 1
         return sid

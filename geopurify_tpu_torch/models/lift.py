@@ -1,10 +1,14 @@
 """Multi-view 2D->3D lifting + cross-view consensus fusion.
 
-Port of geopurify_tpu/models/lift.py (the index-valued path): each view's
-X-Decoder masks are evaluated at its visible points' pixels, every point
-takes the argmax mask's row of a Q+1-row embedding table (row Q = the zero
-sentinel), uncovered points take their nearest covered point's row, and
-the views are fused by a consensus vote plus a top-k agreement merge.
+Port of geopurify_tpu/models/lift.py: each view's X-Decoder masks are
+evaluated at its visible points' pixels and every point takes the argmax
+mask's embedding; uncovered points take their nearest covered point's; the
+views are fused by a consensus vote plus a top-k agreement merge. The
+index-valued form (``lift_view_ids`` + ``fuse_views_indexed``: a row of a
+Q+1-row table per point, row Q the zero sentinel) is the X-Decoder
+pipeline's; the dense form (``lift_view_features`` + ``fuse_views``: [Pv, C]
+features per view) serves the lseg / ape backends and the view-parallel
+lift.
 """
 
 from __future__ import annotations
@@ -18,10 +22,40 @@ from geopurify_tpu_torch.ops.knn import nearest_donor, nearest_fill
 from geopurify_tpu_torch.ops.segment import segment_sum
 
 
+# geopurify_tpu/models/lift.py:33
+class ViewLift(NamedTuple):
+    features: torch.Tensor     # [Pv, C] L2-normalized per-point features (0 if unseen)
+    logits: torch.Tensor       # [Pv, n_cls] scaled cosine logits vs text
+
+
 class ViewLiftIds(NamedTuple):
     winner: torch.Tensor       # [Pv] int32 in [0, Q]; Q = the no-feature sentinel
     embed_table: torch.Tensor  # [Q+1, C] L2-normalized mask embeds, zero last row
     logit_table: torch.Tensor  # [Q+1, n_cls] scaled cosine logits, zero last row
+
+
+# geopurify_tpu/models/lift.py:48
+def lift_view_features(pred_masks, mask_embed, pred_logits, rows, cols, pv_valid,
+                       view_coords, text_embeddings, logit_scale,
+                       mask_shape: Tuple[int, int], mask_threshold: float = 0.5
+                       ) -> ViewLift:
+    """Dense single-view lift: each covered point takes its winning mask's
+    embedding, each uncovered visible point its nearest covered point's;
+    then L2-normalized, with the scaled cosine logits against the text."""
+    winner, covered = _view_winner(pred_masks, pred_logits, rows, cols, pv_valid,
+                                   mask_shape, mask_threshold)
+    feats = torch.where(covered[:, None], mask_embed.to(torch.float32)[winner], 0.0)
+    feats = nearest_fill(feats, view_coords.to(torch.float32), covered, pv_valid)
+    return _normalized_lift(feats, pv_valid, text_embeddings, logit_scale)
+
+
+def _normalized_lift(feats, pv_valid, text_embeddings, logit_scale) -> ViewLift:
+    """Zero the padding rows, L2-normalize, and the scaled cosine logits
+    (the tail every dense lift shares; models/lift_variants.py too)."""
+    feats = torch.where(pv_valid[:, None], feats, 0.0)
+    feats = feats / torch.clamp(torch.linalg.norm(feats, dim=-1, keepdim=True), min=1e-12)
+    logits = logit_scale * feats @ text_embeddings.to(torch.float32).T
+    return ViewLift(feats, logits)
 
 
 # geopurify_tpu/models/lift.py:86
@@ -88,6 +122,18 @@ def lift_view_ids(pred_masks, mask_embed, pred_logits, rows, cols, pv_valid,
     return ViewLiftIds(w, embed_table, logit_table)
 
 
+# geopurify_tpu/models/lift.py:214
+def fuse_views(view_feats, view_logits, view_point_ids, view_point_valid,
+               num_points: int, top_k: int = 3):
+    """Cross-view consensus fusion of dense views ([V, Pv, C] features):
+    pointers into the flattened [V*Pv, C] feature buffer."""
+    V, Pv, C = view_feats.shape
+    ptrs = (torch.arange(V, device=view_feats.device)[:, None] * Pv
+            + torch.arange(Pv, device=view_feats.device)[None, :])
+    return _fuse_core(view_logits, ptrs, view_feats.reshape(V * Pv, C),
+                      view_point_ids, view_point_valid, num_points, top_k)
+
+
 # geopurify_tpu/models/lift.py:239
 def fuse_views_indexed(winner, embed_tables, logit_tables, view_point_ids,
                        view_point_valid, num_points: int, top_k: int = 3):
@@ -110,41 +156,63 @@ def _fuse_core(view_logits, ptrs, table, view_point_ids, view_point_valid,
     top-k merge (a loop over views) of (agreement score, table pointer);
     the final feature is the softmax(score)-weighted mix of the k rows.
     Returns (fused [P, C] f32, view_count [P] f32)."""
-    V, Pv, n_cls = view_logits.shape
-    dev = view_logits.device
-    P = num_points
-    ids = torch.where(view_point_valid, view_point_ids.long(), P)     # [V, Pv]
-    sum_logits = segment_sum(view_logits.reshape(-1, n_cls).to(torch.float32),
-                             ids.reshape(-1), P)
-    count = segment_sum(view_point_valid.reshape(-1).to(torch.float32),
-                        ids.reshape(-1), P)
+    ids = torch.where(view_point_valid, view_point_ids.long(), num_points)   # [V, Pv]
+    sum_logits, count = consensus_sums(view_logits, ids, view_point_valid, num_points)
     consensus = torch.argmax(sum_logits / torch.clamp(count, min=1.0)[:, None], dim=-1)
+    ts, tp = topk_agreement(view_logits, ptrs, ids, view_point_valid, consensus, top_k)
+    fused = mix_topk(ts, lambda lo, hi: table[tp[lo:hi]], table.shape[1])
+    fused = torch.where(count[:, None] > 0, fused, 0.0)
+    return fused, count
 
+
+def consensus_sums(view_logits, ids, view_point_valid, num_points: int):
+    """Per point, the sum of its views' logits [P, n_cls] and its view
+    count [P] (f32); ``ids`` [V, Pv] with ``num_points`` on invalid slots."""
+    n_cls = view_logits.shape[-1]
+    flat = ids.reshape(-1)
+    sum_logits = segment_sum(view_logits.reshape(-1, n_cls).to(torch.float32), flat,
+                             num_points)
+    count = segment_sum(view_point_valid.reshape(-1).to(torch.float32), flat, num_points)
+    return sum_logits, count
+
+
+def topk_agreement(view_logits, ptrs, ids, view_point_valid, consensus, top_k: int):
+    """The running top-k merge, view after view, of each point's (agreement
+    score with its consensus class, pointer of the view's row): returns
+    scores [P, k] (-inf: no candidate) and pointers [P, k] int64, ordered by
+    score, ties to the earlier view (``lax.top_k`` over the stable order)."""
+    V = view_logits.shape[0]
+    P = consensus.shape[0]
+    dev = view_logits.device
     ts = torch.full((P, top_k), float("-inf"), device=dev)
     tp = torch.zeros((P, top_k), dtype=torch.int64, device=dev)
     for v in range(V):
         ok = view_point_valid[v]
         rid = ids[v][ok]                                               # unique ids
-        agree = view_logits[v][ok].gather(1, consensus[rid][:, None])  # [n, 1]
+        agree = view_logits[v][ok].to(torch.float32).gather(1, consensus[rid][:, None])
         cat_s = torch.cat([ts[rid], agree], 1)
         cat_p = torch.cat([tp[rid], ptrs[v][ok].long()[:, None]], 1)
-        # lax.top_k order: descending, ties by lower position (stable sort)
         new_s, arg = torch.sort(cat_s, dim=1, descending=True, stable=True)
         ts[rid] = new_s[:, :top_k]
         tp[rid] = torch.gather(cat_p, 1, arg[:, :top_k])
+    return ts, tp
 
-    fin = torch.isfinite(ts)
-    w = torch.where(fin, torch.softmax(torch.where(fin, ts, float("-inf")), dim=-1), 0.0)
+
+def mix_topk(scores: torch.Tensor, rows, C: int) -> torch.Tensor:
+    """The softmax(score)-weighted mix of each point's k candidates: scores
+    [P, k] (-inf: no candidate, weight 0) and ``rows(lo, hi)`` the
+    candidates' features [hi - lo, k, C] of points [lo, hi), taken in
+    tiles of 2^17 points. Returns [P, C] f32."""
+    P = scores.shape[0]
+    fin = torch.isfinite(scores)
+    w = torch.where(fin, torch.softmax(torch.where(fin, scores, float("-inf")), dim=-1), 0.0)
     w = torch.nan_to_num(w)
-    C = table.shape[1]
-    fused = torch.empty((P, C), dtype=torch.float32, device=dev)
+    fused = torch.empty((P, C), dtype=torch.float32, device=scores.device)
     tile = 1 << 17
     for lo in range(0, P, tile):
         hi = min(lo + tile, P)
-        fused[lo:hi] = torch.bmm(w[lo:hi, None, :],
-                                 table[tp[lo:hi]].to(torch.float32))[:, 0]
-    fused = torch.where(count[:, None] > 0, fused, 0.0)
-    return fused, count
+        fused[lo:hi] = torch.bmm(w[lo:hi, None, :], rows(lo, hi).to(torch.float32))[:, 0]
+    return fused
 
 
 # geopurify_tpu/models/lift.py:370

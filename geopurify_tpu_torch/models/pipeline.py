@@ -9,7 +9,8 @@ its positive, through kernel K2 when ``contrastive.fused_loss`` is set.
 
 Stage 2 (``evaluate_scene``), per scene:
 1. per micro-batch of ``view_batch`` views, the X-Decoder forward and the
-   index-valued lift (``_view_step``);
+   index-valued lift (``_view_step``), or with ``xdecoder.lift_backend``
+   lseg / ape the registered backend's dense lift (``_view_step_dense``);
 2. cross-view top-k consensus fusion and the global unseen-point fill
    (``lift_scene``);
 3. voxel scatter-mean of semantic || geometric features and the sparse-conv
@@ -34,12 +35,16 @@ from geopurify_tpu_torch import resolve_device
 from geopurify_tpu_torch.config import GeoPurifyConfig, SonataConfig
 from geopurify_tpu_torch.data.batch import SceneBatch
 from geopurify_tpu_torch.models.lift import (
+    ViewLift,
     ViewLiftIds,
     fill_unseen_points,
     fill_unseen_points_voxel,
+    fuse_views,
     fuse_views_indexed,
+    lift_view_features,
     lift_view_ids,
 )
+from geopurify_tpu_torch.models.lift_variants import lift_view_dense, lift_view_instance
 from geopurify_tpu_torch.models.sonata import SonataTeacher
 from geopurify_tpu_torch.models.student import AffinityPredictor
 from geopurify_tpu_torch.models.xdecoder import XDecoderSegModel
@@ -62,16 +67,17 @@ class GeoPurifyPipeline:
     def __init__(self, cfg: GeoPurifyConfig, text_embeddings: torch.Tensor,
                  logit_scale: float, teacher_state: Optional[dict] = None,
                  student_state: Optional[dict] = None, device="cuda",
-                 sonata_state: Optional[dict] = None):
+                 sonata_state: Optional[dict] = None, lift_backend_fn=None):
         """``text_embeddings`` [n_cls + 1, dim] (background last, L2-normed);
         ``teacher_state`` / ``student_state`` / ``sonata_state``: state
         dicts of the port's modules (``utils.from_jax`` builds them from JAX
         variables). The X-Decoder and the student keep their zero weights
         without one; the Sonata teacher is built only from its state (Stage 2
-        never runs it), and ``teacher_point_features`` raises without it."""
-        if cfg.xdecoder.lift_backend != "xdecoder":
-            raise NotImplementedError("only the xdecoder lift backend is ported")
+        never runs it), and ``teacher_point_features`` raises without it.
+        ``lift_backend_fn``: the lseg / ape callable of
+        ``cfg.xdecoder.lift_backend`` (``models/lift_backends.py``)."""
         self.cfg = cfg
+        self.lift_backend_fn = lift_backend_fn
         self.device = resolve_device(device)
         self.xdecoder = XDecoderSegModel(cfg.xdecoder).eval()
         if teacher_state is not None:
@@ -116,12 +122,50 @@ class GeoPurifyPipeline:
         ]
         return ViewLiftIds(*(torch.stack(x) for x in zip(*lifts)))
 
+    # geopurify_tpu/models/pipeline.py:150-182
+    def _view_step_dense(self, batch: SceneBatch, lo: int, B: Optional[int] = None
+                         ) -> ViewLift:
+        """Dense lift of views [lo, lo + B) (``B`` defaults to the view
+        batch): the X-Decoder through ``lift_view_features``, or the lseg
+        (dense pixel features) / ape (instance masks) backend callable
+        through ``models/lift_variants.py``, one view at a time."""
+        if B is None:
+            B = max(1, min(self.cfg.xdecoder.view_batch, batch.images.shape[0]))
+        P = batch.points.shape[0]
+        sl = slice(lo, lo + B)
+        images = batch.images[sl].to(torch.float32)
+        rows, cols = batch.view_rows[sl], batch.view_cols[sl]
+        pv_valid = batch.view_point_valid[sl]
+        view_coords = batch.points[batch.view_point_ids[sl].long() % P]
+        text_no_bg = self.text_embeddings[:-1]
+        x = self.cfg.xdecoder
+        if x.lift_backend == "xdecoder":
+            out = self.xdecoder(images, self.text_embeddings, self.logit_scale)
+            lifts = [lift_view_features(
+                out["pred_masks"][b], out["mask_embed"][b], out["pred_logits"][b],
+                rows[b], cols[b], pv_valid[b], view_coords[b], text_no_bg,
+                self.logit_scale, tuple(x.mask_shape), mask_threshold=x.mask_threshold)
+                for b in range(images.shape[0])]
+        elif x.lift_backend == "lseg":
+            lifts = [lift_view_dense(self.lift_backend_fn(images[b]), rows[b], cols[b],
+                                     pv_valid[b], view_coords[b], text_no_bg,
+                                     self.logit_scale)
+                     for b in range(images.shape[0])]
+        else:  # ape
+            lifts = [lift_view_instance(*self.lift_backend_fn(images[b]), rows[b], cols[b],
+                                        pv_valid[b], view_coords[b], text_no_bg,
+                                        self.logit_scale, mask_threshold=x.mask_threshold)
+                     for b in range(images.shape[0])]
+        return ViewLift(*(torch.stack(t) for t in zip(*lifts)))
+
     # geopurify_tpu/models/pipeline.py:210
     def lift_scene(self, batch: SceneBatch, n_valid: Optional[int] = None,
                    stage_seconds: Optional[dict] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Lift every valid view (packed first) in micro-batches, fuse, fill.
-        Returns (fused features [P, feature_dim] f32, view_count [P])."""
+        Returns (fused features [P, feature_dim] f32, view_count [P]). The
+        X-Decoder lifts index-valued views; the lseg / ape backends dense
+        ones (stored in bf16 from 2^28 view-feature values on, as in JAX)."""
         V = batch.images.shape[0]
         Pv = batch.view_point_ids.shape[1]
         C = self.cfg.pooling.feature_dim
@@ -129,13 +173,16 @@ class GeoPurifyPipeline:
         P = batch.points.shape[0]
         B = max(1, min(self.cfg.xdecoder.view_batch, V))
         dev = batch.points.device
+        indexed = self.cfg.xdecoder.lift_backend == "xdecoder"
+        vdtype = torch.bfloat16 if V * Pv * C >= (1 << 28) else torch.float32
         if n_valid is None:
             n_valid = int(batch.view_valid.sum())
         t0 = time.perf_counter()
-        bufs = ([], [], [])
+        bufs = ([], [], []) if indexed else ([], [])
         for lo in range(0, n_valid, B):
             start = min(lo, max(V - B, 0))     # shift the tail batch back, no wrap
-            lift = self._view_step(batch, start)
+            lift = (self._view_step(batch, start) if indexed
+                    else self._view_step_dense(batch, start))
             keep = min(B, n_valid - lo)
             sl = slice(lo - start, lo - start + keep)
             for buf, x in zip(bufs, lift):
@@ -144,28 +191,43 @@ class GeoPurifyPipeline:
         t1 = time.perf_counter()
         pad = V - n_valid
         vp_valid = batch.view_point_valid & batch.view_valid[:, None]
-        if n_valid == 0:
-            winner = torch.zeros((V, Pv), dtype=torch.int32, device=dev)
-            emb_t = torch.zeros((V, 2, C), device=dev)
-            logit_t = torch.zeros((V, 2, n_cls), device=dev)
+        top_k = self.cfg.xdecoder.fusion_top_k
+        if indexed:
+            if n_valid == 0:
+                winner = torch.zeros((V, Pv), dtype=torch.int32, device=dev)
+                emb_t = torch.zeros((V, 2, C), device=dev)
+                logit_t = torch.zeros((V, 2, n_cls), device=dev)
+            else:
+                winner, emb_t, logit_t = (torch.cat(b) for b in bufs)
+                if pad:
+                    Qe = emb_t.shape[1]
+                    winner = torch.cat([winner, winner.new_zeros((pad, Pv))])
+                    emb_t = torch.cat([emb_t, emb_t.new_zeros((pad, Qe, C))])
+                    logit_t = torch.cat([logit_t, logit_t.new_zeros((pad, Qe, n_cls))])
+            fused, count = fuse_views_indexed(
+                winner, emb_t, logit_t, batch.view_point_ids, vp_valid,
+                num_points=P, top_k=top_k)
         else:
-            winner, emb_t, logit_t = (torch.cat(b) for b in bufs)
-            if pad:
-                Qe = emb_t.shape[1]
-                winner = torch.cat([winner, winner.new_zeros((pad, Pv))])
-                emb_t = torch.cat([emb_t, emb_t.new_zeros((pad, Qe, C))])
-                logit_t = torch.cat([logit_t, logit_t.new_zeros((pad, Qe, n_cls))])
-        fused, count = fuse_views_indexed(
-            winner, emb_t, logit_t, batch.view_point_ids, vp_valid,
-            num_points=P, top_k=self.cfg.xdecoder.fusion_top_k)
-        if P >= (1 << 19):
-            fused = fill_unseen_points_voxel(
-                fused, count, batch.point_valid, batch.point2voxel,
-                batch.voxel_coords, batch.voxel_valid)
-        else:
-            fused = fill_unseen_points(fused, batch.points, count, batch.point_valid)
+            feats = torch.zeros((V, Pv, C), dtype=vdtype, device=dev)
+            logits = torch.zeros((V, Pv, n_cls), device=dev)
+            if n_valid:
+                feats[:n_valid] = torch.cat(bufs[0]).to(vdtype)
+                logits[:n_valid] = torch.cat(bufs[1])
+            fused, count = fuse_views(feats, logits, batch.view_point_ids, vp_valid,
+                                      num_points=P, top_k=top_k)
+        fused = self.fill_unseen(fused, count, batch)
         _mark(stage_seconds, "fuse_fill", t1, dev)
         return fused, count
+
+    # geopurify_tpu/models/pipeline.py:300-321
+    def fill_unseen(self, fused, count, batch: SceneBatch) -> torch.Tensor:
+        """The never-seen points' features: from the nearest seen point, or
+        at voxel resolution for scenes of P >= 2^19 points."""
+        if batch.points.shape[0] >= (1 << 19):
+            return fill_unseen_points_voxel(
+                fused, count, batch.point_valid, batch.point2voxel,
+                batch.voxel_coords, batch.voxel_valid)
+        return fill_unseen_points(fused, batch.points, count, batch.point_valid)
 
     # geopurify_tpu/models/pipeline.py:320
     def _voxel_embed(self, f2d: torch.Tensor, batch: SceneBatch):
@@ -275,12 +337,13 @@ class GeoPurifyPipeline:
     # geopurify_tpu/models/pipeline.py:499
     def stage1_loss(self, generator: Optional[torch.Generator], batch: SceneBatch,
                     f2d: torch.Tensor, f_teacher: torch.Tensor, train: bool = True,
-                    pairs: Optional[ContrastivePairs] = None
+                    pairs: Optional[ContrastivePairs] = None, group=None
                     ) -> Tuple[torch.Tensor, ContrastivePairs]:
         """InfoNCE distillation loss of the student; returns (loss, pairs).
         ``generator`` draws the anchors unless ``pairs`` is given. With
         ``train`` the student's BatchNorm uses batch moments and updates its
-        running statistics in place. K2 (``info_nce_loss_fused``) runs when
+        running statistics in place; ``group`` sums its moments over that
+        process group's ranks (SyncBN). K2 (``info_nce_loss_fused``) runs when
         ``contrastive.fused_loss`` is set and ``num_anchors`` divides by
         min(128, A) and min(64, A): its kernels on a CUDA tensor, its plain
         versions on a CPU one."""
@@ -299,7 +362,7 @@ class GeoPurifyPipeline:
         voxel_geom = segment_mean(batch.geom_feats.to(torch.float32), p2v, M)
         voxel_in = torch.cat([voxel_sem, voxel_geom], 1)
         nbr = build_neighbor_table(batch.voxel_coords, batch.voxel_valid)
-        embed = self.student(voxel_in, nbr, batch.voxel_valid, train=train)
+        embed = self.student(voxel_in, nbr, batch.voxel_valid, train=train, group=group)
         embed_pad = torch.cat([embed, embed.new_zeros((1, embed.shape[1]))])
         p2v_c = torch.clamp(p2v, max=M)
 

@@ -30,7 +30,9 @@ class MaskedBatchNorm(nn.Module):
     """BatchNorm over the valid rows, zero on invalid rows. ``train``: batch
     moments (gradients flow through them), running stats updated in place
     as ``ra = momentum * ra + (1 - momentum) * batch`` with the biased
-    variance (not ``nn.BatchNorm1d``'s unbiased one)."""
+    variance (not ``nn.BatchNorm1d``'s unbiased one). ``group``: the batch
+    moments are taken over the valid rows of every rank of that process
+    group (SyncBN; JAX's ``axis_name``)."""
 
     def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -41,9 +43,9 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x, valid, train: bool = False):
+    def forward(self, x, valid, train: bool = False, group=None):
         if train:
-            mean, var = masked_batch_stats(x, valid)
+            mean, var = masked_batch_stats(x, valid, group)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)
@@ -87,9 +89,9 @@ class ResBlock(nn.Module):
         self.conv2 = SparseConv3Layer(channels, channels)
         self.norm2 = MaskedBatchNorm(channels, bn_momentum)
 
-    def forward(self, x, neighbor_idx, valid, train: bool = False):
-        y = torch.relu(self.norm1(self.conv1(x, neighbor_idx, valid), valid, train))
-        y = self.norm2(self.conv2(y, neighbor_idx, valid), valid, train)
+    def forward(self, x, neighbor_idx, valid, train: bool = False, group=None):
+        y = torch.relu(self.norm1(self.conv1(x, neighbor_idx, valid), valid, train, group))
+        y = self.norm2(self.conv2(y, neighbor_idx, valid), valid, train, group)
         return torch.relu(y + x)
 
 
@@ -107,13 +109,14 @@ class AffinityPredictor(nn.Module):
         self.num_res_blocks = num_res_blocks
         self.output_conv = SparseConv1Layer(hidden_dim, embed_dim)
 
-    def forward(self, features, neighbor_idx, valid, train: bool = False):
+    def forward(self, features, neighbor_idx, valid, train: bool = False, group=None):
+        """``group``: SyncBN's process group in train mode (None: local moments)."""
         if self.compute_dtype == "bfloat16":
             features = features.to(torch.bfloat16)
         x = self.input_conv(features, neighbor_idx, valid)
-        x = torch.relu(self.input_norm(x, valid, train))
+        x = torch.relu(self.input_norm(x, valid, train, group))
         for i in range(self.num_res_blocks):
-            x = getattr(self, f"res{i}")(x, neighbor_idx, valid, train)
+            x = getattr(self, f"res{i}")(x, neighbor_idx, valid, train, group)
         return self.output_conv(x, valid)
 
 

@@ -15,6 +15,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from geopurify_tpu_torch.parallel.mesh import all_reduce_sum
+
 
 # geopurify_tpu/ops/sparse_conv.py:34
 def kernel_offsets_3d(kernel_size: int = 3) -> np.ndarray:
@@ -150,13 +152,22 @@ def sparse_conv1(
     return torch.where(valid[:, None], out, 0.0).to(features.dtype)
 
 
-# geopurify_tpu/ops/sparse_conv.py:420
-def masked_batch_stats(x: torch.Tensor, valid: torch.Tensor):
+# geopurify_tpu/ops/sparse_conv.py:420-436
+def masked_batch_stats(x: torch.Tensor, valid: torch.Tensor, group=None):
     """(mean, var) over the valid rows only, biased variance
-    max(E[x^2] - E[x]^2, 0); differentiable."""
+    max(E[x^2] - E[x]^2, 0); differentiable. With ``group`` (a process
+    group) the count and the two sums are summed over its ranks first, the
+    backward summing their cotangents over it too: SyncBN."""
     v = valid[:, None].to(torch.float32)
-    count = torch.clamp(v.sum(), min=1.0)
     x32 = x.to(torch.float32)
-    mean = (x32 * v).sum(0) / count
-    var = torch.clamp((x32 * x32 * v).sum(0) / count - mean * mean, min=0.0)
+    count = v.sum()
+    s1 = (x32 * v).sum(0)
+    s2 = (x32 * x32 * v).sum(0)
+    if group is not None:
+        C = s1.shape[0]
+        summed = all_reduce_sum(torch.cat([count[None], s1, s2]), group)
+        count, s1, s2 = summed[0], summed[1: C + 1], summed[C + 1:]
+    count = torch.clamp(count, min=1.0)
+    mean = s1 / count
+    var = torch.clamp(s2 / count - mean * mean, min=0.0)
     return mean, var

@@ -1,6 +1,6 @@
 """Stage-1 training entry — geometric distillation of the student.
 
-Port of geopurify_tpu/run/train.py on one device: each step takes the
+Port of geopurify_tpu/run/train.py: each step takes, on each rank, the
 frozen inputs of one scene (the X-Decoder lift and the Sonata teacher's
 features, computed live outside autograd or read from precomputed files),
 then the value and gradient of ``stage1_loss`` and an AdamW step over three
@@ -16,11 +16,18 @@ by ``run/precompute.py`` (``--teacher-cache``) or fused 2D feature files
 features belong to the unaugmented geometry. ``xdecoder.ckpt`` /
 ``sonata.ckpt`` name the released teachers (converted on load).
 
-The JAX trainer's data parallelism (``parallel.dp`` > 1, SyncBN) and
-``--distributed`` wait in ROADMAP Queue 1 and raise
-``NotImplementedError``; ``dp = -1`` (all devices) resolves to one device.
+Data parallelism: ``--distributed`` joins the process group the launcher
+set up (``torchrun``: NCCL between cards; gloo with ``--device cpu``), one
+rank per device and one scene per rank a step. BatchNorm moments are summed
+over the ranks (SyncBN, ``parallel.sync_batchnorm``); gradients, running
+statistics and the loss are averaged before the optimizer, so the replicas
+stay equal; each rank draws its anchors from a stream of its own. Rank 0
+alone logs and checkpoints. ``parallel.dp`` must be -1 or the world size;
+``parallel.tp`` > 1 raises.
 
 Usage:
+  torchrun --nproc_per_node=8 -m geopurify_tpu_torch.run.train --distributed \
+      --preset scannet --teacher-cache runs/teacher_cache data.data_root=...
   python -m geopurify_tpu_torch.run.train --preset scannet data.data_root=... \
       xdecoder.ckpt=xdecoder_focall_last.pt sonata.ckpt=sonata.pth
   python -m geopurify_tpu_torch.run.train --teacher-cache runs/teacher_cache ...
@@ -52,6 +59,14 @@ from geopurify_tpu_torch.models.lang import (
 )
 from geopurify_tpu_torch.models.pipeline import GeoPurifyPipeline, build_sonata
 from geopurify_tpu_torch.models.student import init_student_
+from geopurify_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_,
+    all_reduce_mean_,
+    init_distributed,
+    make_mesh,
+    scene_index,
+)
 from geopurify_tpu_torch.run.optim import StudentOptimizer, make_optimizer
 from geopurify_tpu_torch.utils.checkpoint import (
     load_torch_state_dict,
@@ -92,20 +107,47 @@ class TrainState:
 
 
 # geopurify_tpu/run/train.py:57-107
-def make_train_step(pipeline: GeoPurifyPipeline):
-    """One Stage-1 step on one device: value and gradient of
-    ``stage1_loss`` (train-mode BatchNorm), then the optimizer. Returns
-    ``step(state, scene, f2d, f_teacher) -> loss`` (a detached scalar)."""
+def make_train_step(pipeline: GeoPurifyPipeline, mesh: Optional[Mesh] = None):
+    """One Stage-1 step: value and gradient of ``stage1_loss`` (train-mode
+    BatchNorm), then the optimizer. Returns ``step(state, scene, f2d,
+    f_teacher, pairs=None) -> loss`` (a detached scalar). The anchors come
+    from a generator drawn for this step and rank from ``state.generator``
+    (JAX's ``fold_in(rng, axis_index)``) unless ``pairs`` is given.
 
-    def step(state: TrainState, scene: SceneBatch, f2d, f_teacher):
+    Over a mesh with a process group, each rank's step is the JAX
+    ``shard_map`` body: BatchNorm moments summed over the ranks when
+    ``parallel.sync_batchnorm``, then the mean over the ranks of the
+    gradients, the updated running statistics and the loss (one flat
+    all-reduce) ahead of the optimizer."""
+    group = mesh.group if mesh is not None else None
+    rank = mesh.rank if mesh is not None else 0
+    bn_group = group if pipeline.cfg.parallel.sync_batchnorm else None
+
+    def step(state: TrainState, scene: SceneBatch, f2d, f_teacher, pairs=None):
         state.optimizer.zero_grad()
-        loss, _ = pipeline.stage1_loss(state.generator, scene, f2d, f_teacher, train=True)
+        gen = None if pairs is not None else rank_generator(state.generator, rank)
+        loss, _ = pipeline.stage1_loss(gen, scene, f2d, f_teacher, train=True, pairs=pairs,
+                                       group=bn_group)
         loss.backward()
+        loss = loss.detach()
+        if group is not None:
+            student = pipeline.student
+            all_reduce_mean_([p.grad for p in student.parameters()]
+                             + list(student.buffers()) + [loss.reshape(1)], mesh.dp, group)
         state.optimizer.step()
         state.step += 1
-        return loss.detach()
+        return loss
 
     return step
+
+
+def rank_generator(shared: torch.Generator, rank: int) -> torch.Generator:
+    """A generator of one step and rank: a seed drawn from ``shared`` (the
+    same draw on every rank, which keeps ``shared`` in step across them),
+    offset by ``rank``."""
+    seed = int(torch.randint(0, 1 << 62, (1,), generator=shared,
+                             device=shared.device).item())
+    return torch.Generator(device=shared.device).manual_seed(seed + rank)
 
 
 # geopurify_tpu/run/train.py:110
@@ -135,9 +177,8 @@ def build_pipeline(cfg: GeoPurifyConfig, generator: torch.Generator, device="cud
     in the JAX trainer: fine for smoke runs, meaningless on real data, so
     ``require_teachers`` (the real-data entry points) logs the JAX
     package's warnings. ``with_sonata=False`` leaves the Sonata teacher out
-    (Stage 2 never runs it)."""
-    if cfg.xdecoder.lift_backend != "xdecoder":
-        raise NotImplementedError("only the xdecoder lift backend is ported")
+    (Stage 2 never runs it). With ``xdecoder.lift_backend`` lseg / ape the
+    backend's callable comes from ``models/lift_backends.py``."""
     dev = resolve_device(device)
     t, x = cfg.text, cfg.xdecoder
     tk = build_tokenizer(t.tokenizer_vocab, t.context_length, t.vocab_size)
@@ -164,10 +205,11 @@ def build_pipeline(cfg: GeoPurifyConfig, generator: torch.Generator, device="cud
     text = embed_class_names(lang, tk, list(cfg.data.all_label),
                              use_templates=t.prompt_eng, template=t.prompt_template,
                              device=dev)
-    # both routes take numpy's exp of the f32 parameter, as the converter
-    # does (torch's exp can differ by an ulp, which a bf16 head amplifies)
+    # each route as JAX takes it: the converter's numpy exp of the
+    # checkpoint's parameter, else the correctly rounded exp of the f32
+    # parameter that jnp.exp gives (numpy's can be an ulp off)
     logit_scale = (conv["logit_scale"] if conv
-                   else float(np.exp(lang.logit_scale.detach().cpu().numpy())))
+                   else float(torch.exp(lang.logit_scale.detach().float().cpu())))
     sonata_state = None
     if with_sonata:
         sc = cfg.sonata
@@ -187,46 +229,48 @@ def build_pipeline(cfg: GeoPurifyConfig, generator: torch.Generator, device="cud
             sonata = build_sonata(sc)
             _zero_(sonata)
             sonata_state = sonata.state_dict()
+    lift_backend_fn = None
+    if x.lift_backend != "xdecoder":
+        from geopurify_tpu_torch.models.lift_backends import get_backend
+
+        lift_backend_fn = get_backend(x.lift_backend)
     pipeline = GeoPurifyPipeline(cfg, text, logit_scale, device=dev,
                                  teacher_state=conv["xdecoder"] if conv else None,
-                                 sonata_state=sonata_state)
+                                 sonata_state=sonata_state,
+                                 lift_backend_fn=lift_backend_fn)
     if conv is None:
         _zero_(pipeline.xdecoder)
     return pipeline
 
 
-def _dp(cfg: GeoPurifyConfig) -> int:
-    dp = cfg.parallel.dp
-    if dp not in (-1, 1):
-        raise NotImplementedError(
-            f"parallel.dp={dp}: data parallelism with SyncBN over torch.distributed "
-            "is not ported yet (ROADMAP Queue 1); the port trains "
-            "on one device")
-    return 1
-
-
 # geopurify_tpu/run/train.py:377-407
 class StepInputs:
-    """The inputs of each step, ``(sid, scene, f2d, f_teacher)``, or None
-    when the scene is unusable (the step is skipped, as in JAX). The scene
-    comes from ``scenes`` (synthetic, in turn), from ``fused_ds`` (fused 2D
-    features read with it) or, with a ``teacher_cache``, from ``ds`` by id;
-    otherwise from ``ds``'s prefetching stream, whose scenes carry no id.
+    """This rank's inputs of each step, ``(sid, scene, f2d, f_teacher)``, or
+    None when its scene is unusable (the step is skipped, as in JAX). The
+    scene comes from ``scenes`` (synthetic; rank r of ``mesh`` takes scene
+    ``it * dp + r``), from ``fused_ds`` (fused 2D features read with it) or,
+    with a ``teacher_cache``, from ``ds`` by id; otherwise from ``ds``'s
+    prefetching stream, whose scenes carry no id. Over several ranks every
+    rank draws the same ``dp`` ids from ``ds`` and loads the one of its rank
+    (the live mode too, without the prefetch).
     ``f2d`` and ``f_teacher`` come from ``<teacher_cache>/<sid>.npz`` where
     it exists; what is still missing is computed live (the X-Decoder lift,
     the Sonata teacher), timed as ``lift_2d`` / ``teacher_3d``."""
 
     def __init__(self, pipeline: GeoPurifyPipeline, timer: StageTimer, scenes=None,
-                 ds=None, fused_ds=None, teacher_cache: Optional[str] = None):
+                 ds=None, fused_ds=None, teacher_cache: Optional[str] = None,
+                 mesh: Mesh = Mesh(1, 0, None)):
         self.pipeline, self.timer, self.scenes = pipeline, timer, scenes
         self.ds, self.fused_ds, self.teacher_cache = ds, fused_ds, teacher_cache
+        self.mesh = mesh
 
     def _scene(self, it: int) -> Optional[Tuple[Optional[str], SceneBatch, Optional[torch.Tensor]]]:
         if self.scenes is not None:
-            return None, self.scenes[it % len(self.scenes)], None
-        if not (self.teacher_cache or self.fused_ds is not None):
+            return None, self.scenes[scene_index(it, self.mesh, len(self.scenes))], None
+        frozen = self.teacher_cache or self.fused_ds is not None
+        if self.mesh.dp == 1 and not frozen:
             return None, self.ds.next_scene(), None
-        sid = self.ds._next_sid()
+        sid = [self.ds._next_sid() for _ in range(self.mesh.dp)][self.mesh.rank]
         if self.fused_ds is not None:
             pair = self.fused_ds.make_scene_batch_with_features(sid)
             if pair is None:
@@ -276,15 +320,16 @@ def main(argv=None) -> Optional[TrainState]:
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="[%(asctime)s %(filename)s:%(lineno)d] %(message)s")
-    if args.distributed:
-        raise NotImplementedError(
-            "--distributed (DP / SyncBN over torch.distributed) is not ported yet "
-            "(ROADMAP Queue 1)")
     cfg = load_config(args.preset, overrides=args.overrides, yaml_path=args.config)
     if args.epochs:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, epochs=args.epochs))
-    n_dp = _dp(cfg)
-    dev = resolve_device(args.device)
+    owns_group = args.distributed and not torch.distributed.is_initialized()
+    dev = init_distributed(args.device) if args.distributed else resolve_device(args.device)
+    mesh = make_mesh(cfg.parallel.dp, cfg.parallel.tp)
+    n_dp, lead = mesh.dp, mesh.rank == 0
+    if args.distributed:
+        log.info("distributed: rank %d of %d on %s (%s)", mesh.rank, n_dp, dev,
+                 torch.distributed.get_backend())
 
     init_gen = torch.Generator().manual_seed(cfg.train.manual_seed)
     pipeline = build_pipeline(cfg, init_gen, dev,
@@ -295,7 +340,7 @@ def main(argv=None) -> Optional[TrainState]:
 
         scenes = [make_scene_batch(seed=i, n_points=1500, n_views=2, device=dev)
                   for i in range(max(2, n_dp))]
-        inputs = StepInputs(pipeline, timer, scenes=scenes)
+        inputs = StepInputs(pipeline, timer, scenes=scenes, mesh=mesh)
         n_scenes = len(scenes)
     else:
         from geopurify_tpu_torch.data.loaders import SceneDataset
@@ -309,8 +354,10 @@ def main(argv=None) -> Optional[TrainState]:
 
             fused_ds = FusedFeatureDataset(cfg, args.fused_features, device=dev)
             fused_ds.base = ds
+        if n_dp > 1:
+            ds.split_streams(mesh.rank)
         inputs = StepInputs(pipeline, timer, ds=ds, fused_ds=fused_ds,
-                            teacher_cache=args.teacher_cache)
+                            teacher_cache=args.teacher_cache, mesh=mesh)
         n_scenes = len(ds)
     init_student_(pipeline.student, init_gen)
     steps_per_epoch = args.steps_per_epoch or n_scenes * cfg.data.loop // n_dp
@@ -325,19 +372,24 @@ def main(argv=None) -> Optional[TrainState]:
             state.load_state_dict(restored)
             log.info("resumed from step %d", step)
 
-    train_step = make_train_step(pipeline)
+    train_step = make_train_step(pipeline, mesh)
     metrics_path = os.path.join(cfg.train.save_path, "metrics.jsonl")
     os.makedirs(cfg.train.save_path, exist_ok=True)
     t0 = time.time()
     for epoch in range(cfg.train.epochs):
         for it in range(steps_per_epoch):
             step_in = inputs(it)
+            if mesh.group is not None:
+                # every rank enters the step's collectives, or none does
+                ready = torch.tensor([float(step_in is not None)], device=dev)
+                if all_reduce_(ready, torch.distributed.ReduceOp.MIN).item() == 0:
+                    continue
             if step_in is None:
                 continue            # an unusable scene: no step
             _, batch, f2d, ft = step_in
             with timer.stage("train_step", block_on=dev):
                 loss = train_step(state, batch, f2d, ft)
-            if state.step % cfg.train.print_freq == 0:
+            if lead and state.step % cfg.train.print_freq == 0:
                 # accumulation ticks the schedule once per k raw steps
                 lr = schedule(state.step // max(cfg.train.grad_accum_steps, 1))
                 rec = {"step": state.step, "epoch": epoch, "loss": float(loss),
@@ -347,11 +399,14 @@ def main(argv=None) -> Optional[TrainState]:
                 log.info("%s", rec)
                 with open(metrics_path, "a") as f:
                     f.write(json.dumps(rec) + "\n")
-        if (epoch + 1) % cfg.train.save_freq == 0:
+        if lead and (epoch + 1) % cfg.train.save_freq == 0:
             save_checkpoint(ckpt_dir, state.state_dict(), state.step)
             log.info("checkpointed at step %d", state.step)
-    save_checkpoint(ckpt_dir, state.state_dict(), state.step)
+    if lead:
+        save_checkpoint(ckpt_dir, state.state_dict(), state.step)
     log.info("done: %d steps in %.1fs", state.step, time.time() - t0)
+    if owns_group:
+        torch.distributed.destroy_process_group()
     return state
 
 

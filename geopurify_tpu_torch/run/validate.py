@@ -1,7 +1,7 @@
 """Stage-2 validation entry — open-vocabulary segmentation eval.
 
-Port of geopurify_tpu/run/validate.py on one device: every scene of the
-(sharded) evaluation list goes through the data layer
+Port of geopurify_tpu/run/validate.py: every scene of the (sharded)
+evaluation list goes through the data layer
 (``data/loaders.SceneDataset``) and ``GeoPurifyPipeline.evaluate_scene`` at
 the preset's static buckets; per-class histograms accumulate into a
 ``SegMeter`` (Base / Novel / All, and the foreground group); the result
@@ -16,10 +16,19 @@ data). The student is initialised from a seeded generator;
 ``--student-ckpt`` takes a released MinkowskiEngine
 checkpoint (``.pth``), a checkpoint file of the port's trainer
 (``step_<n>.pt``) or its checkpoint directory (the newest step).
-Multi-process evaluation (``--distributed``) is not ported yet.
+``--lift-backend lseg|ape`` lifts through a backend registered in
+``models/lift_backends.py``.
+
+``--distributed`` joins the process group the launcher set up (one rank a
+card over NCCL, gloo with ``--device cpu``): rank r of n evaluates every
+n-th scene of its ``--shard-idx/--shard-total`` slice, the histograms are
+summed over the ranks before the summary, and rank 0 alone prints it and
+appends the log.
 
 Usage:
   python -m geopurify_tpu_torch.run.validate --preset scannet [overrides]
+  torchrun --nproc_per_node=8 -m geopurify_tpu_torch.run.validate --distributed \
+      --preset scannet [overrides]
   python -m geopurify_tpu_torch.run.validate --synthetic --device cpu --preset tiny
 """
 
@@ -38,6 +47,7 @@ import torch
 
 from geopurify_tpu_torch import resolve_device
 from geopurify_tpu_torch.config import GeoPurifyConfig, load_config
+from geopurify_tpu_torch.parallel.mesh import init_distributed, world
 from geopurify_tpu_torch.utils.metrics import (
     SegMeter,
     allreduce_meter_across_hosts,
@@ -149,28 +159,29 @@ def main(argv=None):
     parser.add_argument("--shard-idx", type=int, default=0)
     parser.add_argument("--shard-total", type=int, default=1)
     parser.add_argument("--distributed", action="store_true",
-                        help="multi-process evaluation (not ported yet)")
+                        help="multi-process: join the launcher's process group")
     parser.add_argument("--synthetic", action="store_true")
     parser.add_argument("--max-scenes", type=int, default=None)
     parser.add_argument("--save-preds", default=None,
                         help="dir for per-scene pred/gt PLY dumps")
     parser.add_argument("--lift-backend", default=None,
                         choices=["xdecoder", "lseg", "ape"],
-                        help="2D lift backend; only xdecoder is ported")
+                        help="2D lift backend; lseg / ape need a registered "
+                             "callable (models/lift_backends.py)")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="[%(asctime)s %(filename)s:%(lineno)d] %(message)s")
+    owns_group = args.distributed and not torch.distributed.is_initialized()
+    dev = init_distributed(args.device) if args.distributed else resolve_device(args.device)
+    rank, n_proc = world()
     if args.distributed:
-        raise NotImplementedError(
-            "--distributed (multi-process evaluation over torch.distributed) is not "
-            "ported yet (ROADMAP Queue 1); shard with --shard-idx/--shard-total")
+        log.info("distributed: rank %d of %d on %s", rank, n_proc, dev)
     cfg = load_config(args.preset, overrides=args.overrides, yaml_path=args.config)
     if args.lift_backend:
         cfg = dataclasses.replace(
             cfg, xdecoder=dataclasses.replace(cfg.xdecoder, lift_backend=args.lift_backend))
-    dev = resolve_device(args.device)
 
     from geopurify_tpu_torch.models.student import init_student_
     from geopurify_tpu_torch.run.train import build_pipeline
@@ -197,6 +208,7 @@ def main(argv=None):
 
         ds = SceneDataset(cfg, split="val", device=dev)
         ids = shard_scene_list(ds.scene_ids, args.shard_idx, args.shard_total)
+        ids = ids[rank::n_proc]                 # further shard over processes
         if args.max_scenes:
             ids = ids[: args.max_scenes]
         scene_iter = (
@@ -212,6 +224,10 @@ def main(argv=None):
         "scenes_per_sec": 1.0 / float(np.mean(times)) if times else 0.0,
         "per_class_iou": meter.per_class_iou().tolist(),
     }
+    if owns_group:
+        torch.distributed.destroy_process_group()
+    if rank != 0:
+        return result
     print(json.dumps(result))
     # append-mode result log, anchored under cfg.train.save_path so shards
     # launched from different working directories land in one run directory

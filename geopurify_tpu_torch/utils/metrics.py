@@ -4,7 +4,9 @@ Port of geopurify_tpu/utils/metrics.py: ``intersection_and_union`` computes
 the per-class histograms on the tensors' device (the reference's
 intersectionAndUnionGPU); ``SegMeter`` accumulates them on the host and
 reports mIoU / mAcc / allAcc over all classes and the base, novel and
-foreground (non-structural) groups.
+foreground (non-structural) groups; ``psum_histograms`` and
+``allreduce_meter_across_hosts`` sum the histograms over the processes of a
+multi-process evaluation.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from geopurify_tpu_torch.parallel.mesh import all_reduce_, world
 
 
 # geopurify_tpu/utils/metrics.py:21
@@ -44,17 +48,23 @@ def intersection_and_union(
     return area_i, area_p + area_t - area_i, area_t
 
 
+# geopurify_tpu/utils/metrics.py:51
+def psum_histograms(hists, group=None):
+    """(I, U, T) summed over the ranks of ``group`` (the default group when
+    None), each as an exact int64 count on its own device."""
+    return tuple(all_reduce_(h.round().to(torch.int64), group=group) for h in hists)
+
+
 # geopurify_tpu/utils/metrics.py:56
 def allreduce_meter_across_hosts(meter: "SegMeter") -> "SegMeter":
-    """Sum a SegMeter's histograms over all processes. One process: a no-op.
-    Several (``torch.distributed`` initialised with a world size above 1)
-    are not ported yet, as the trainer's data parallelism is not."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "multi-process evaluation (an all-reduce of the meter over "
-            "torch.distributed) is not ported yet; evaluate shards with "
-            "--shard-idx/--shard-total in separate processes")
+    """Sum a SegMeter's histograms over every process of the default group,
+    in place (each process evaluates its shard of the scenes; the summary
+    covers them all). One process: a no-op, no collective issued."""
+    if world()[1] == 1:
+        return meter
+    stacked = torch.from_numpy(np.stack([meter.intersection, meter.union, meter.target]))
+    (total,) = psum_histograms([stacked])
+    meter.intersection, meter.union, meter.target = total.numpy().astype(np.float64)
     return meter
 
 

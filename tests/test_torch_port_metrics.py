@@ -13,8 +13,10 @@ from geopurify_tpu.config import load_config as jload_config
 from geopurify_tpu.run import validate as jvalidate
 from geopurify_tpu.utils import metrics as jm
 from geopurify_tpu_torch.config import load_config
+from geopurify_tpu_torch.parallel import spawn
 from geopurify_tpu_torch.run import validate as tvalidate
 from geopurify_tpu_torch.utils import metrics as tm
+from tests import torch_dist_workers as workers
 from tests.test_torch_port_data import tiny_pair  # noqa: F401  (fixture)
 
 
@@ -68,7 +70,7 @@ def test_seg_meter_summary_exact(rng, preset):
     assert tmeter.summary().keys() == jmeter.summary().keys()
 
 
-def test_average_meter_and_single_process_allreduce(monkeypatch):
+def test_average_meter_and_single_process_allreduce():
     a, b = tm.AverageMeter(), jm.AverageMeter()
     for v, n in ((1.5, 2), (3.0, 1), (0.25, 4)):
         a.update(v, n)
@@ -76,11 +78,12 @@ def test_average_meter_and_single_process_allreduce(monkeypatch):
     assert (a.val, a.sum, a.count, a.avg) == (b.val, b.sum, b.count, b.avg)
     meter = tm.SegMeter(num_classes=3)
     assert tm.allreduce_meter_across_hosts(meter) is meter
-    # several processes: not ported, as the trainer's data parallelism
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError):
-        tm.allreduce_meter_across_hosts(meter)
+    # two gloo processes: each rank's histograms summed, exactly, on both
+    rng = np.random.default_rng(4)
+    hists = [rng.integers(0, 1 << 40, (3, 5)).astype(np.float64) for _ in range(2)]
+    ranks = spawn(workers.meter_allreduce, 2, "cpu", args=(hists,), timeout_s=120)
+    for got in ranks:
+        np.testing.assert_array_equal(got, hists[0] + hists[1])
 
 
 def _key_tree(x):

@@ -131,14 +131,16 @@ def test_lift_scene_matches_jax():
 def test_port_imports_no_jax():
     """Every module of the port imports without JAX, the JAX package or the
     ``regex`` module, the Stage-1 modules, the data layer, the validation
-    entry, the converters and the precompute entry included."""
+    entry, the converters, the precompute entry, the parallel layer and the
+    lift backends included."""
     stage1 = ("ops.infonce", "ops.contrastive", "ops.voxelize", "models.sonata",
               "models.lang", "data.synthetic", "run.optim", "run.train",
               "utils.checkpoint", "utils.profiling", "data.loaders", "data.ply",
               "data.cameras", "data.augment", "ops.projection", "utils.metrics",
               "utils.visualization", "run.validate", "utils.convert_xdecoder",
               "utils.convert_sonata", "data.feature_loader", "data.selector",
-              "run.precompute")
+              "run.precompute", "parallel.mesh", "parallel.view_parallel", "run.dryrun",
+              "models.lift_backends", "models.lift_variants")
     code = (
         "import importlib, pkgutil, sys\n"
         "import geopurify_tpu_torch as p\n"

@@ -15,6 +15,7 @@ that neither side's text embeddings are NaN). The JAX ``build_pipeline``
 converts ``xdecoder.ckpt`` with the FocalNet-L depths whatever the config
 says; the tests hand its converter the tiny depths."""
 
+import dataclasses
 import functools
 import gzip
 import json
@@ -142,8 +143,13 @@ def _write_fused(d, root, sids, kind, rng):
 def test_fused_features_match_jax(world, tmp_path, kind):
     root, sids = world["root"], world["sids"]
     _write_fused(tmp_path, root, sids, kind, np.random.default_rng(3))
-    jds = jfeat.FusedFeatureDataset(loader_cfg(jconfig, root), str(tmp_path))
-    tds = tfeat.FusedFeatureDataset(loader_cfg(tconfig, root), str(tmp_path), device="cpu")
+    # a voxel budget of max_points drops no point, where the two loaders'
+    # rows agree (test_fused_features_stay_aligned_when_the_voxel_budget_drops_points)
+    jcfg, tcfg = (loader_cfg(pkg, root) for pkg in (jconfig, tconfig))
+    jcfg, tcfg = (dataclasses.replace(c, data=dataclasses.replace(c.data, max_voxels=512))
+                  for c in (jcfg, tcfg))
+    jds = jfeat.FusedFeatureDataset(jcfg, str(tmp_path))
+    tds = tfeat.FusedFeatureDataset(tcfg, str(tmp_path), device="cpu")
     assert len(tds) == len(jds) == 3
     for sid in sids[:-1]:
         n = len(tloaders.load_scene_any(tds.base.scene_3d_path(sid)).xyz)
@@ -155,6 +161,7 @@ def test_fused_features_match_jax(world, tmp_path, kind):
         (tb, tf), (jb, jf) = (tds.make_scene_batch_with_features(sid),
                               jds.make_scene_batch_with_features(sid))
         _same_batch(tb, jb)
+        assert int(tb.point_valid.sum()) == min(n, 512)
         assert tf.dtype == jf.dtype == np.float32 and tf.shape == (512, 16)
         np.testing.assert_array_equal(tf, jf)
         assert np.abs(tf).sum() > 0
@@ -215,7 +222,7 @@ def test_precompute_scene_matches_jax(world, jax_tiny):
                                require_teachers=True)
     np.testing.assert_allclose(tp.text_embeddings.numpy(), np.asarray(jp.text_embeddings),
                                rtol=1e-5, atol=1e-6)
-    assert tp.logit_scale == pytest.approx(float(jp.logit_scale), rel=1e-7)
+    assert tp.logit_scale == float(jp.logit_scale)
     sid = world["train"][1]
     jb = jloaders.SceneDataset(jcfg, split="train", augment=False).make_scene_batch(sid)
     tb = tloaders.SceneDataset(tcfg, split="train", augment=False,
@@ -302,3 +309,42 @@ def test_jax_cache_trains_like_the_ports(world, caches, jax_tiny, monkeypatch, t
         losses[name] = [json.loads(x)["loss"] for x in recs]
     assert len(losses["jax"]) == 2
     np.testing.assert_allclose(losses["jax"], losses["port"], rtol=1e-5)
+
+
+def test_fused_features_stay_aligned_when_the_voxel_budget_drops_points(world, tmp_path):
+    """A budget of 64 voxels drops most points of each scene: row i of the
+    port's features is still point i's (each file row holds its point's
+    coordinates). The JAX loader indexes the file by the point cap alone,
+    so its rows slip from the first dropped point on."""
+    root, sids = world["root"], world["sids"]
+    for sid in sids:
+        xyz = tloaders.load_scene_any(str(root / "3d" / f"{sid}_vh_clean_2.pth")).xyz
+        feat = np.concatenate([xyz, np.zeros((len(xyz), 13))], 1).astype(np.float32)
+        torch.save({"feat": torch.from_numpy(feat)}, tmp_path / f"{sid}.pt")
+    cfgs = [dataclasses.replace(c, data=dataclasses.replace(c.data, max_voxels=64))
+            for c in (loader_cfg(tconfig, root), loader_cfg(jconfig, root))]
+    tds = tfeat.FusedFeatureDataset(cfgs[0], str(tmp_path), device="cpu")
+    jds = jfeat.FusedFeatureDataset(cfgs[1], str(tmp_path))
+    for sid in sids:
+        (tb, tf), (jb, jf) = (tds.make_scene_batch_with_features(sid),
+                              jds.make_scene_batch_with_features(sid))
+        _same_batch(tb, jb)
+        n = int(tb.point_valid.sum())
+        n_all = len(tloaders.load_scene_any(tds.base.scene_3d_path(sid)).xyz)
+        assert n < min(n_all, 512)                       # the budget dropped points
+        np.testing.assert_allclose(tf[:n, :3], tb.points[:n].numpy(), rtol=1e-6, atol=1e-6)
+        assert not np.allclose(jf[:n, :3], tb.points[:n].numpy(), atol=1e-3)
+        assert not tf[n:].any()
+
+
+def test_logit_scale_without_a_checkpoint_is_jaxs(world, jax_tiny):
+    """Without ``xdecoder.ckpt`` both trainers take the exp of the language
+    tower's f32 parameter (1.0 at init): the correctly rounded value of
+    ``jnp.exp``, one ulp from numpy's. (With the checkpoint both take the
+    converter's numpy exp: test_precompute_scene_matches_jax.)"""
+    ov = [o for o in world["overrides"] if not o.startswith(("xdecoder.ckpt", "sonata.ckpt"))]
+    jp, _ = jtrain.build_pipeline(jconfig.load_config("tiny", overrides=ov), jax.random.key(0))
+    tp = ttrain.build_pipeline(tconfig.load_config("tiny", overrides=ov),
+                               torch.Generator().manual_seed(0), "cpu", with_sonata=False)
+    assert tp.logit_scale == float(jp.logit_scale) == float(np.float32(np.e))
+    assert tp.logit_scale != float(np.exp(np.float32(1.0)))

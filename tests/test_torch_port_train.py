@@ -387,7 +387,11 @@ def test_train_main_defaults_to_the_card(monkeypatch):
         ttrain.main(["--preset", "tiny", "--synthetic"])
 
 
-@pytest.mark.parametrize("argv", [["--distributed"], ["parallel.dp=2"]])
+@pytest.mark.parametrize("argv", [
+    ["parallel.tp=2"],          # nothing shards over the model axis
+    ["parallel.dp=2"],          # one process: the world is 1
+])
 def test_train_main_refuses_what_is_not_ported(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+    err = NotImplementedError if "tp" in argv[0] else ValueError
+    with pytest.raises(err, match=argv[0]):
         ttrain.main(["--preset", "tiny", "--device", "cpu", "--synthetic"] + argv)

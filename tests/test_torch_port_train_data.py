@@ -70,6 +70,11 @@ def test_trainer_inputs_match_jax(world, caches, jax_tiny, monkeypatch, tmp_path
             "live": []}[mode]
     argv = argv + ["--steps-per-epoch", "2"]
     common = world["overrides"] + ["train.epochs=1", "train.print_freq=1"]
+    if mode == "fused":
+        # a voxel budget that drops no point: there the JAX loader's rows
+        # align too (tests/test_torch_port_stage1_data.py::
+        # test_fused_features_stay_aligned_when_the_voxel_budget_drops_points)
+        common.append("data.max_voxels=512")
     state, got = _port_run(monkeypatch, argv + common + [f"train.save_path={tmp_path / 't'}"])
     ref, sids = _jax_inputs(monkeypatch, argv + common + [f"train.save_path={tmp_path / 'j'}"])
     assert len(got) == len(ref) == state.step == 2

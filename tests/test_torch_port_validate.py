@@ -2,8 +2,9 @@
 the CPU at the ``tiny`` preset: the same weights (carried over with
 ``utils/from_jax``) give the same predictions and the same meter summary
 on synthetic scenes (on-disk scenes: tests/test_torch_port_data.py);
-``main`` runs over on-disk scenes (its JSON schema against the JAX entry
-point's: tests/test_torch_port_metrics.py); released student checkpoints
+``main`` runs over on-disk scenes, in one process and in two
+(``--distributed``; its JSON schema against the JAX entry point's:
+tests/test_torch_port_metrics.py); released student checkpoints
 convert to the same student outputs."""
 
 import json
@@ -22,6 +23,8 @@ from geopurify_tpu_torch.config import load_config
 from geopurify_tpu_torch.data import synthetic as tsynth
 from geopurify_tpu_torch.run import validate as tvalidate
 from geopurify_tpu_torch.utils import checkpoint as tckpt
+from geopurify_tpu_torch.parallel import spawn
+from tests import torch_dist_workers as workers
 from tests.test_torch_port_data import _same_eval, on_disk, tiny_pair  # noqa: F401  (fixtures)
 from tests.test_torch_port_metrics import _last_json
 
@@ -32,9 +35,11 @@ def test_evaluate_scenes_synthetic_matches_jax(tiny_pair):
     _same_eval(tiny_pair, jscenes, tscenes, 2)
 
 
-def test_validate_main_on_disk(tmp_path, on_disk, capsys):
+def test_validate_main_on_disk(tmp_path, on_disk, capsys, monkeypatch):
     """``main`` over the on-disk fixture, sharded, with --save-preds and a
-    student checkpoint directory of the port's trainer."""
+    student checkpoint directory of the port's trainer; then over the whole
+    list in one process and with ``--distributed`` in two gloo processes,
+    which must sum to the same histograms and print one line."""
     from geopurify_tpu_torch.data.ply import load_point_ply
     from geopurify_tpu_torch.models.student import AffinityPredictor, init_student_
 
@@ -59,8 +64,27 @@ def test_validate_main_on_disk(tmp_path, on_disk, capsys):
     pred = load_point_ply(str(tmp_path / "preds" / "scene0000_pred.ply"))
     assert 0 < len(pred["xyz"]) <= 512
     assert res["scenes_per_sec"] > 0
-    with pytest.raises(NotImplementedError):
-        tvalidate.main(["--distributed", "--device", "cpu", "--preset", "tiny"])
+
+    argv = ["--device", "cpu", "--preset", "tiny", "--student-ckpt",
+            str(tmp_path / "ckpt")] + overrides
+    seen = {}
+    allreduce = tvalidate.allreduce_meter_across_hosts
+
+    def recording(meter):
+        seen["iut"] = np.stack([meter.intersection, meter.union, meter.target])
+        return allreduce(meter)
+
+    monkeypatch.setattr(tvalidate, "allreduce_meter_across_hosts", recording)
+    single = tvalidate.main(argv)
+    ranks = spawn(workers.validate_main, 2, "cpu", args=(["--distributed"] + argv,),
+                  timeout_s=300)
+    np.testing.assert_array_equal(ranks[0]["iut"], seen["iut"])
+    np.testing.assert_array_equal(ranks[1]["iut"], seen["iut"])
+    assert seen["iut"][2].sum() > 0
+    assert ranks[0]["result"]["summary"] == single["summary"]
+    assert ranks[0]["result"]["per_class_iou"] == single["per_class_iou"]
+    assert len(ranks[0]["stdout"].strip().splitlines()) == 1 and not ranks[1]["stdout"]
+    assert _last_json(ranks[0]["stdout"]) == json.loads(json.dumps(ranks[0]["result"]))
 
 
 @pytest.mark.parametrize("n,total", [(10, 3), (7, 1), (2, 4), (314, 8)])
