@@ -49,8 +49,11 @@ Phases (any failure exits non-zero; each prints its seconds):
    256) with band 6144 and a 2^21-edge residual, then the first scene at
    ``scannet200`` (logit space, C=200) and in feature space (C=512), the
    X-Decoder seeded as in phase 12 (more than one class must win); per
-   scene the host load, views / fuse_fill / pool_classify, the kNN, K1's
-   launches, band_overflow and peak memory;
+   scene the host load, views / fuse_fill / pool_classify, the smoothing's
+   kNN (the pruned grid route, with its certificate's counts), the voxel
+   fill's donor search, the student's 3^3 convs by route (z-stacked or,
+   where the residual overflows its budget, the tap scan), K1's launches,
+   band_overflow and peak memory;
 11. the same path at the ``tiny`` preset on the card and on the CPU over a
    small on-disk fixture padded to P=2^19 (so the voxel-resolution unseen
    fill runs), seeded so that all four classes win: equal batches from
@@ -84,7 +87,17 @@ Phases (any failure exits non-zero; each prints its seconds):
    19 K1 launches a scene, one JSON line); and (d) ``run.train.main
    --distributed`` as a world of 1 over NCCL, launched through the
    environment as ``torchrun`` does, 2 synthetic steps, beside the runs of
-   one scene.
+   one scene;
+14. the pruned searches and the z-stack at phase 10's first scene: the
+   smoothing's kNN-96 (``knn_self_grid``, M=2^18) against the full route
+   (dists and idx bit-equal on the valid rows; the shares of queries that
+   failed the certificate and of tiles over budget), the voxel fill's
+   donors (``nearest_fill_grid``'s search) against ``nearest_fill``'s
+   sweep (equal), the sampler's anchors' kNN (``knn_anchors_grid``, 4096
+   anchors over P=2^20 points) against ``knn_search`` (equal), and the
+   full-width student with a ``ZStackTable`` (its budget raised to the
+   largest tap where the pipeline's overflows) against the plain table
+   (within 2e-4 of the embedding scale), each with both times.
 
 A K1 row at a preset's class count (or feature space's 512) that is
 slower than its library call is flagged (``FLAG:`` lines naming the preset,
@@ -964,22 +977,31 @@ class Instrument:
     scene's per-point predictions and logits are kept on the host in
     ``preds``. Restores everything on exit."""
 
-    def __init__(self, mods, seed=seed_released):
+    def __init__(self, mods, seed=seed_released, capture=False):
         self.mods, self.scenes, self.preds, self._undo = mods, [], [], []
         self.build_s = None
         self.seed = seed
+        # ``capture``: the first scene's voxels, points and seen voxels, on
+        # the host, for phase 14
+        self.scene0 = {} if capture else None
 
     def _patch(self, owner, name, fn):
         self._undo.append((owner, name, getattr(owner, name)))
         setattr(owner, name, fn)
 
     def __enter__(self):
-        loaders, pipe, pool, band, train = (
-            self.mods[k] for k in ("loaders", "pipe", "pool", "band", "train"))
-        load, evaluate, knn, build = (
+        loaders, pipe, pool, band, train, lift, knn, sc = (
+            self.mods[k] for k in ("loaders", "pipe", "pool", "band", "train", "lift",
+                                   "knn", "sc"))
+        load, evaluate, search_full, fill_grid, build = (
             loaders.SceneDataset.make_scene_batch, pipe.GeoPurifyPipeline.evaluate_scene,
-            pool.knn_self_grid, train.build_pipeline)
+            pool.knn_search, lift.nearest_fill_grid, train.build_pipeline)
         rec = self
+
+        def keep(**tensors):
+            if rec.scene0 is not None and len(rec.scenes) == 1:
+                rec.scene0.update({n: t.cpu() for n, t in tensors.items()
+                                   if n not in rec.scene0})
 
         def build_pipeline(*a, **k):
             t = time.perf_counter()
@@ -999,12 +1021,14 @@ class Instrument:
                                    V=batch.images.shape[0], Pv=batch.view_point_ids.shape[1],
                                    views=int(batch.view_valid.sum()),
                                    points=int(batch.point_valid.sum()),
-                                   voxels=int(batch.voxel_valid.sum())))
+                                   voxels=int(batch.voxel_valid.sum()), fill_s=[]))
+            keep(points=batch.points, point_valid=batch.point_valid)
             return batch
 
         def evaluate_scene(self_, batch, *a, **k):
             torch.cuda.reset_peak_memory_stats()
             n0 = band.banded_window_matmul.launches
+            z0 = dict(sc.ZSTACK_ROUTES)
             t = time.perf_counter()
             out = evaluate(self_, batch, *a, **{**k, "profile": True})
             torch.cuda.synchronize()
@@ -1012,6 +1036,7 @@ class Instrument:
             valid = batch.point_valid
             r.update(seconds=time.perf_counter() - t, stages=out["stage_seconds"],
                      k1_launches=band.banded_window_matmul.launches - n0,
+                     zstack_routes={n: c - z0[n] for n, c in sc.ZSTACK_ROUTES.items()},
                      band_overflow=int(out["band_overflow"]),
                      peak_bytes=torch.cuda.max_memory_allocated(),
                      finite=bool(torch.isfinite(out["logits"]).all()),
@@ -1021,17 +1046,33 @@ class Instrument:
             rec.preds.append((out["pred"].cpu(), out["logits"].cpu()))
             return out
 
-        def knn_self_grid(*a, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            res = knn(*a, **k)
-            torch.cuda.synchronize()
-            rec.scenes[-1]["knn_s"].append(time.perf_counter() - t)
+        # the smoothing's kNN, whichever route build_affinity_graph takes:
+        # the grid route through its private form, which also gives the
+        # certificate's counts
+        def knn_self_grid(coords, valid, k, radius=12, num_candidates=4096):
+            (d, i, st), dt = synced(lambda: knn._knn_self_grid(coords, valid, k, radius,
+                                                               num_candidates))
+            rec.scenes[-1]["knn_s"].append(dt)
+            rec.scenes[-1]["knn_stats"] = st
+            keep(voxel_coords=coords, voxel_valid=valid)
+            return d, i
+
+        def knn_search(*a, **k):
+            res, dt = synced(lambda: search_full(*a, **k))
+            rec.scenes[-1]["knn_s"].append(dt)
+            return res
+
+        def nearest_fill_grid(features, coords, has_value, valid, **k):
+            res, dt = synced(lambda: fill_grid(features, coords, has_value, valid, **k))
+            rec.scenes[-1]["fill_s"].append(dt)
+            keep(fill_has=has_value)
             return res
 
         self._patch(loaders.SceneDataset, "make_scene_batch", make_scene_batch)
         self._patch(pipe.GeoPurifyPipeline, "evaluate_scene", evaluate_scene)
         self._patch(pool, "knn_self_grid", knn_self_grid)
+        self._patch(pool, "knn_search", knn_search)
+        self._patch(lift, "nearest_fill_grid", nearest_fill_grid)
         self._patch(train, "build_pipeline", build_pipeline)
         return self
 
@@ -1048,28 +1089,33 @@ PRESET_OVERRIDES = ["pooling.band=6144", "pooling.max_residual=2097152"]
 
 
 def run_validate(mods, preset: str, root: Path, n_scenes: int, min_views: int,
-                 extra=(), seed=seed_released):
+                 extra=(), seed=seed_released, capture=False):
     """``run.validate.main`` on the card over the first ``n_scenes`` of
-    ``root``; the K1 count is set to 0 just before and read just after."""
+    ``root``; the K1 count is set to 0 just before and read just after.
+    ``capture``: the record's ``scene0`` holds the first scene's voxels,
+    points and seen voxels (phase 14's inputs)."""
     band = mods["band"]
     overrides = PRESET_OVERRIDES + list(extra)
     cfg = mods["cfg"].load_config(preset, overrides=overrides)
     args = ["--preset", preset, "--max-scenes", str(n_scenes)] + overrides + \
         dataset_overrides(root)
     band.banded_window_matmul.launches = 0
-    with Instrument(mods, seed) as ins:
+    with Instrument(mods, seed, capture) as ins:
         t = time.perf_counter()
         result = mods["validate"].main(args)
         wall = time.perf_counter() - t
     launches = band.banded_window_matmul.launches
     n_cls = len(cfg.data.all_label)
     for i, r in enumerate(ins.scenes):
-        st = r["stages"]
+        st, ks = r["stages"], r["knn_stats"]
         log(f"{preset} {' '.join(extra)} scene {i} ({r['sid']}): load {r['load_s']:.2f} s (P={r['P']}, "
             f"{r['points']} points, M={r['M']}, {r['voxels']} voxels, {r['views']} of "
             f"V={r['V']} views, Pv={r['Pv']}); evaluate {r['seconds']:.2f} s = views "
-            f"{st['views']:.2f} + fuse_fill {st['fuse_fill']:.2f} + pool_classify "
-            f"{st['pool_classify']:.2f} (kNN {sum(r['knn_s']):.2f}); K1 launches "
+            f"{st['views']:.2f} + fuse_fill {st['fuse_fill']:.2f} (donor fill "
+            f"{sum(r['fill_s']):.3f}) + pool_classify {st['pool_classify']:.2f} (grid kNN "
+            f"{sum(r['knn_s']):.3f}, {ks['failed']} of {ks['queries']} queries recomputed, "
+            f"{ks['overflow_tiles']} of {ks['tiles']} tiles over budget); student 3^3 convs "
+            f"{r['zstack_routes']}; K1 launches "
             f"{r['k1_launches']}, band_overflow {r['band_overflow']}, peak "
             f"{r['peak_bytes'] / 2**30:.2f} GiB; {r['covered']:.1%} of the points seen, "
             f"{r['predicted']} classes predicted")
@@ -1080,6 +1126,11 @@ def run_validate(mods, preset: str, root: Path, n_scenes: int, min_views: int,
         assert r["k1_launches"] == cfg.pooling.num_iterations, r["k1_launches"]
         assert r["finite"] and r["classes"] == n_cls, r
         assert r["predicted"] > 1, "one class predicted: the seeded weights say nothing"
+        # the preset path: the grid kNN, the donor fill at voxel resolution
+        # and the z-stack gate (M >= student.zstack_min_voxels), the
+        # overflow route counted with the z-stacked one
+        assert len(r["knn_s"]) == 1 and len(r["fill_s"]) == 1, r
+        assert sum(r["zstack_routes"].values()) == 1 + 2 * cfg.student.num_res_blocks, r
     log(f"{preset} {' '.join(extra)}: run.validate.main over {len(ins.scenes)} scenes in {wall:.1f} s; "
         f"K1 launches {launches}; result {json.dumps(result)[:400]}")
     assert len(ins.scenes) == n_scenes and launches == n_scenes * cfg.pooling.num_iterations
@@ -1089,7 +1140,7 @@ def run_validate(mods, preset: str, root: Path, n_scenes: int, min_views: int,
     assert len(result["per_class_iou"]) == cfg.data.test_classes
     assert result["scenes_per_sec"] > 0
     return dict(scenes=ins.scenes, k1_launches=launches, wall_s=wall, result=result,
-                preds=ins.preds, build_s=ins.build_s)
+                preds=ins.preds, build_s=ins.build_s, scene0=ins.scene0)
 
 
 def phase_preset_validation(mods, root: Path, views=(36, 140)):
@@ -1101,14 +1152,16 @@ def phase_preset_validation(mods, root: Path, views=(36, 140)):
                   color_wh=(1296, 968), depth_wh=(640, 480), device="cuda", seed0=21)
     write_s = time.perf_counter() - t
     log(f"wrote {len(views)} ScanNet-layout scenes ({views} views) in {write_s:.1f} s")
-    scannet = run_validate(mods, "scannet", root, len(views), min_views=32)
+    scannet = run_validate(mods, "scannet", root, len(views), min_views=32, capture=True)
     assert [r["V"] for r in scannet["scenes"]] == [64, 256], scannet["scenes"]
     scannet200 = run_validate(mods, "scannet200", root, 1, min_views=32)
     feature = run_validate(mods, "scannet", root, 1, min_views=32,
                            extra=["pooling.smooth_space=feature"])
+    scene0 = scannet["scene0"]
     for rec in (scannet, scannet200, feature):
-        del rec["preds"]
-    return dict(write_s=write_s, scannet=scannet, scannet200=scannet200, feature=feature)
+        del rec["preds"], rec["scene0"]
+    return dict(write_s=write_s, scannet=scannet, scannet200=scannet200,
+                feature=feature), scene0
 
 
 # ---------------------------------------------------------------------------
@@ -1766,6 +1819,125 @@ def phase_parallel(mods, root: Path, n_steps=3):
             nccl.wait()
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the pruned searches and the z-stacked student at phase 10's scene
+# ---------------------------------------------------------------------------
+
+def best_of(fn, n: int):
+    """(first result, least seconds) of ``n`` synchronised calls after one
+    warm-up call."""
+    fn()
+    runs = [synced(fn) for _ in range(n)]
+    return runs[0][0], min(t for _, t in runs)
+
+
+def phase_grid_search(mods, scene0):
+    """Each pruned search against its brute force on phase 10's first scene
+    (``scannet``: M = 2^18 voxel bucket, P = 2^20 points): the kNN-96 of the
+    smoothing graph (bit-equal on the valid rows), the voxel fill's donors
+    (equal, the lowest id on ties), the sampler's anchors' kNN (equal, at
+    the preset's 4096 anchors drawn by ``select_anchors``), and the
+    full-width student (518-512-128, 4 residual blocks, seeded) with the
+    z-stacked table against the plain one; each with both times and the
+    certificate's counts."""
+    knn, sc, dev = mods["knn"], mods["sc"], "cuda"
+    cfg = mods["cfg"].load_config("scannet", overrides=PRESET_OVERRIDES)
+    pc, cc, scfg = cfg.pooling, cfg.contrastive, cfg.student
+    vox, vv = scene0["voxel_coords"].to(dev), scene0["voxel_valid"].to(dev)
+    M, k = vox.shape[0], pc.knn_k
+
+    def shares(st):
+        return (st["failed"] / max(st["queries"], 1),
+                st["overflow_tiles"] / max(st["tiles"], 1))
+
+    # the smoothing graph's kNN: grid against full
+    (d_g, i_g, st), grid_s = best_of(
+        lambda: knn._knn_self_grid(vox, vv, k, pc.knn_radius, pc.knn_candidates), 3)
+    ids = torch.arange(M, device=dev)
+    (d_f, i_f), full_s = synced(lambda: knn.knn_search(
+        vox, vox, vv, k, query_ids=ids, exclude_identical_index=True))
+    knn_equal = torch.equal(d_g[vv], d_f[vv]) and torch.equal(i_g[vv], i_f[vv])
+    unfilled = bool(torch.isinf(d_g[~vv]).all()) and bool((i_g[~vv] == 0).all())
+    knn_shares = shares(st)
+    log(f"kNN-{k} certificate (M={M}, {st['queries']} valid voxels, radius "
+        f"{pc.knn_radius}, budget {pc.knn_candidates}): {knn_shares[0]:.4%} of the "
+        f"queries failed it ({st['failed']}, recomputed), {knn_shares[1]:.4%} of the "
+        f"tiles over budget ({st['overflow_tiles']} of {st['tiles']})")
+    log(f"kNN-{k}: grid {grid_s * 1e3:.1f} ms, full {full_s * 1e3:.1f} ms "
+        f"({full_s / grid_s:.1f}x); dists and idx bit-equal on the valid rows: "
+        f"{knn_equal}; invalid rows unfilled: {unfilled}")
+    assert knn_equal and unfilled
+    del d_g, i_g, d_f, i_f
+
+    # the voxel fill's donors: grid against the sweep of nearest_fill
+    cf, has = vox.float(), scene0["fill_has"].to(dev)
+    (q_g, don_g, fst), fill_s = best_of(
+        lambda: knn._nearest_fill_grid(cf, has, vv, 512, 4096, 16, 9), 3)
+    donors_ok = has & vv
+    (q_s, don_s, _), sweep_s = best_of(lambda: knn._nearest_donor_core(
+        cf, donors_ok, vv & ~has, knn._donor_tile(int(donors_ok.sum()))), 1)
+    fill_equal = torch.equal(q_g, q_s) and torch.equal(don_g, don_s)
+    fill_shares = shares(fst)
+    log(f"voxel fill donors: {fst['queries']} unseen of {int(vv.sum())} voxels; grid "
+        f"{fill_s * 1e3:.1f} ms, sweep {sweep_s * 1e3:.1f} ms; {fill_shares[0]:.4%} "
+        f"recomputed, {fill_shares[1]:.4%} of {fst['tiles']} tiles over budget; donors "
+        f"equal (lowest id on ties): {fill_equal}")
+    assert fill_equal
+
+    # the sampler's anchors' spatial kNN at P = 2^20: grid against brute
+    pts, pv = scene0["points"].to(dev), scene0["point_valid"].to(dev)
+    aidx, _ = mods["ctr"].select_anchors(torch.Generator(device=dev).manual_seed(8), pv,
+                                         cc.num_anchors)
+    aidx = aidx.long()
+    (a_d, a_i, ast), anchors_s = best_of(lambda: knn._knn_anchors_grid(
+        pts, pv, aidx, cc.spatial_knn_k, cc.spatial_radius), 2)
+    (b_d, b_i), brute_s = best_of(lambda: knn.knn_search(
+        pts[aidx], pts, pv, cc.spatial_knn_k, query_ids=aidx,
+        exclude_identical_index=True), 2)
+    av = pv[aidx]
+    sets_equal = torch.equal(a_i[av].sort(1).values, b_i[av].sort(1).values)
+    anchors_equal = torch.equal(a_d[av], b_d[av]) and torch.equal(a_i[av], b_i[av])
+    anchor_shares = shares(ast)
+    log(f"anchors' kNN-{cc.spatial_knn_k} (P={pts.shape[0]}, {aidx.shape[0]} anchors, "
+        f"radius {cc.spatial_radius}): grid {anchors_s * 1e3:.1f} ms, brute "
+        f"{brute_s * 1e3:.1f} ms; {anchor_shares[0]:.4%} recomputed, "
+        f"{anchor_shares[1]:.4%} of {ast['tiles']} tiles over budget; sets equal "
+        f"{sets_equal}, bit-equal {anchors_equal}")
+    assert sets_equal and anchors_equal
+
+    # the student: z-stacked against the plain table
+    student = mods["student"].AffinityPredictor(
+        scfg.input_dim, scfg.hidden_dim, scfg.embed_dim, scfg.num_res_blocks,
+        bn_momentum=scfg.bn_momentum).to(dev).eval()
+    mods["student"].init_student_(student, torch.Generator().manual_seed(4))
+    x = torch.randn((M, scfg.input_dim), generator=torch.Generator(device=dev).manual_seed(9),
+                    device=dev)
+    nbr = sc.build_neighbor_table(vox, vv)
+    budget = max(16384, M // 16)          # the pipeline's residual budget
+    zt_preset = sc.build_zstack_table(vox, vv, nbr, res_budget=budget)
+    res_cnt = zt_preset.res_cnt.tolist()
+    zt = zt_preset if not bool(zt_preset.overflow) else sc.build_zstack_table(
+        vox, vv, nbr, res_budget=max(res_cnt))
+    with torch.inference_mode():
+        e_p, plain_s = best_of(lambda: student(x, nbr, vv), 2)
+        e_z, z_s = best_of(lambda: student(x, zt, vv), 2)
+    rel = float((e_z - e_p).abs().max() / e_p.abs().max())
+    log(f"student forward (M={M}): plain table {plain_s * 1e3:.1f} ms, z-stacked "
+        f"{z_s * 1e3:.1f} ms (residual budget {zt.res_dst.shape[1]}, z-hole edges a "
+        f"tap {min(res_cnt)}-{max(res_cnt)}; at the pipeline's budget {budget} the "
+        f"table overflows: {bool(zt_preset.overflow)}); max |diff| {rel:.2e} of the "
+        f"embedding scale")
+    assert not bool(zt.overflow) and rel < 2e-4, rel
+    return dict(knn=dict(grid_s=grid_s, full_s=full_s, stats=st, bit_equal=knn_equal,
+                         failed_share=knn_shares[0], overflow_share=knn_shares[1]),
+                fill=dict(grid_s=fill_s, sweep_s=sweep_s, stats=fst, equal=fill_equal),
+                anchors=dict(grid_s=anchors_s, brute_s=brute_s, stats=ast,
+                             equal=anchors_equal),
+                student=dict(plain_s=plain_s, zstack_s=z_s, rel=rel, res_cnt=res_cnt,
+                             preset_budget=budget,
+                             preset_overflow=bool(zt_preset.overflow)))
+
+
 def load_mods():
     """The port's modules by short name (the rank processes of phase 13
     import them anew)."""
@@ -1775,6 +1947,7 @@ def load_mods():
     from geopurify_tpu_torch.data import loaders as loaders_mod
     from geopurify_tpu_torch.data import synthetic as synth_mod
     from geopurify_tpu_torch.models import lang as lang_mod
+    from geopurify_tpu_torch.models import lift as lift_mod
     from geopurify_tpu_torch.models import pipeline as pipe_mod
     from geopurify_tpu_torch.models import student as student_mod
     from geopurify_tpu_torch.models import xdecoder as xdec_mod
@@ -1783,6 +1956,7 @@ def load_mods():
     from geopurify_tpu_torch.ops import infonce as nce_mod
     from geopurify_tpu_torch.ops import knn as knn_mod
     from geopurify_tpu_torch.ops import pooling as pool_mod
+    from geopurify_tpu_torch.ops import sparse_conv as sc_mod
     from geopurify_tpu_torch.parallel import mesh as mesh_mod
     from geopurify_tpu_torch.run import dryrun as dryrun_mod
     from geopurify_tpu_torch.run import optim as optim_mod
@@ -1797,7 +1971,7 @@ def load_mods():
                 optim=optim_mod, train=train_mod, loaders=loaders_mod,
                 validate=validate_mod, pool=pool_mod, band=band_mod, lang=lang_mod,
                 xdec=xdec_mod, precompute=precompute_mod, convx=convx_mod, convs=convs_mod,
-                mesh=mesh_mod, dryrun=dryrun_mod)
+                mesh=mesh_mod, dryrun=dryrun_mod, lift=lift_mod, sc=sc_mod)
 
 
 def main() -> int:
@@ -1846,11 +2020,12 @@ def main() -> int:
     stage1_small = run("8 Stage-1 card vs CPU", phase_stage1_small, mods)
     k1_wide = run("9 K1 wide", phase_k1_wide, band_mod)
     with tempfile.TemporaryDirectory() as scenes10:
-        preset = run("10 preset-scale validation", phase_preset_validation, mods,
-                     Path(scenes10))
+        preset, scene0 = run("10 preset-scale validation", phase_preset_validation, mods,
+                             Path(scenes10))
         val_small = run("11 validation card vs CPU", phase_validation_small, mods)
         released = run("12 released checkpoints, on-disk Stage 1", phase_released, mods)
         parallel = run("13 parallel layer", phase_parallel, mods, Path(scenes10))
+    grid = run("14 pruned searches and z-stack", phase_grid_search, mods, scene0)
 
     # K1 at every shape a main path launched it: the bench-spec scenes
     # (phase 3), the scannet, scannet200 and feature-space preset-scale
@@ -1906,7 +2081,8 @@ def main() -> int:
                   k2=k2, stage1=stage1, train_main=train_rec, stage1_small=stage1_small,
                   k1_wide={str(k): v for k, v in k1_wide.items()},
                   k1_behind_library=k1_behind, preset=preset,
-                  validation_small=val_small, released=released, parallel=parallel)
+                  validation_small=val_small, released=released, parallel=parallel,
+                  grid_search=grid)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))

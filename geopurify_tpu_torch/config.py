@@ -104,9 +104,8 @@ class StudentConfig:
     # "bfloat16" runs inference conv compute in bf16 (params/BN stay f32);
     # embedding-vs-f32 error bound pinned in tests/test_sparse_conv.py
     compute_dtype: str = "float32"
-    # Stage-2 eval: voxel count at/above which the JAX package's student
-    # convs take its z-stacked TPU layout (same convolution; the port has
-    # one layout and ignores this)
+    # Stage-2 eval: voxel count at/above which the student's 3^3 convs run
+    # z-stacked (ops/sparse_conv.ZStackTable; the same convolution)
     zstack_min_voxels: int = 131072
 
 
@@ -128,8 +127,9 @@ class PoolingConfig:
     # Residual segment_sum chunk size of the JAX package (0 = one call);
     # the port applies the residual in one call
     res_chunk: int = 262144
-    # kNN strategy of the JAX package: 'grid' (tiled, pruned, exact) or
-    # 'full' (brute force); the port has one exact brute force
+    # kNN strategy: 'grid' (ops/knn.knn_self_grid: Hilbert tiles, box
+    # pruning, certificate + exact recompute) or 'full' (brute force); the
+    # same neighbours
     knn_mode: str = "grid"
     knn_radius: int = 12                  # certificate radius (voxel units)
     knn_candidates: int = 4096            # per-tile candidate budget
@@ -158,9 +158,8 @@ class ContrastiveConfig:
     num_micro_negatives: int = 15         # hardest among spatial kNN
     spatial_knn_k: int = 96
     # anchors' spatial kNN: 'grid' = Hilbert-tiled bbox pruning with the
-    # certificate + full-row fallback (ops/knn.knn_anchors_grid — exact up
-    # to float ties; measured vs the brute in tests); 'brute' = chunked
-    # full-db knn_search
+    # certificate + full-row fallback (ops/knn.knn_anchors_grid — the brute
+    # force's neighbours, ties included); 'brute' = full-db knn_search
     spatial_method: str = "grid"
     # grid certificate radius in coord units (meters for ScanNet scenes);
     # ANY value is exact — too small only routes queries into the fallback

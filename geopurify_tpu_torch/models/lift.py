@@ -18,7 +18,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from geopurify_tpu_torch.models.layers import _aa_resize_taps, resize_bicubic_antialias
-from geopurify_tpu_torch.ops.knn import nearest_donor, nearest_fill
+from geopurify_tpu_torch.ops.knn import nearest_donor, nearest_fill, nearest_fill_grid
 from geopurify_tpu_torch.ops.segment import segment_sum
 
 
@@ -227,11 +227,11 @@ def fill_unseen_points_voxel(fused, count, point_valid, point2voxel,
     """Voxel-resolution unseen fill for scenes of P >= 2^19 points: each
     voxel's mean fused feature over its seen points; a valid voxel with no
     seen point takes the mean of its nearest seen voxel; an unseen point
-    takes its voxel's (filled) mean. The donor search is the exact tiled
-    brute force of ``ops/knn.nearest_fill`` on the integer voxel grid, where
-    the JAX version prunes it with a Hilbert-tiled grid (``nearest_fill_grid``,
-    :418): both find the nearest seen voxel; between seen voxels at one
-    distance the port takes the lowest id, where the JAX order is open."""
+    takes its voxel's (filled) mean. The donor search is the pruned
+    ``ops/knn.nearest_fill_grid`` over the integer voxel grid, as in the JAX
+    version (:414-420): the nearest seen voxel, the lowest id between seen
+    voxels at one distance, the same voxel the exhaustive ``nearest_fill``
+    picks."""
     M = voxel_coords.shape[0]
     seen = count > 0
     p2v = torch.where(point_valid, point2voxel.long(), M)
@@ -239,8 +239,9 @@ def fill_unseen_points_voxel(fused, count, point_valid, point2voxel,
     vox_seen = vox_seen_cnt > 0
     masked = torch.where(seen[:, None], fused, 0.0)
     vox_feat = segment_sum(masked, p2v, M) / torch.clamp(vox_seen_cnt, min=1.0)[:, None]
-    filled_vox = nearest_fill(vox_feat, voxel_coords.to(torch.float32),
-                              vox_seen & voxel_valid, voxel_valid)
+    filled_vox = nearest_fill_grid(vox_feat, voxel_coords.to(torch.float32),
+                                   vox_seen & voxel_valid, voxel_valid,
+                                   num_candidates=4096)
     filled_vox = torch.cat([filled_vox, filled_vox.new_zeros((1, fused.shape[1]))])
     donated = filled_vox[torch.clamp(p2v, max=M)]
     return torch.where(seen[:, None], fused, donated)

@@ -56,7 +56,7 @@ from geopurify_tpu_torch.ops.contrastive import (
 from geopurify_tpu_torch.ops.infonce import info_nce_loss_fused
 from geopurify_tpu_torch.ops.pooling import geometry_guided_pooling
 from geopurify_tpu_torch.ops.segment import segment_mean
-from geopurify_tpu_torch.ops.sparse_conv import build_neighbor_table
+from geopurify_tpu_torch.ops.sparse_conv import build_neighbor_table, build_zstack_table
 
 
 # geopurify_tpu/models/pipeline.py:63
@@ -231,15 +231,19 @@ class GeoPurifyPipeline:
 
     # geopurify_tpu/models/pipeline.py:320
     def _voxel_embed(self, f2d: torch.Tensor, batch: SceneBatch):
-        """Voxel scatter-mean (semantic || geometric) + student forward.
-        (The JAX z-stacked conv layout above ``zstack_min_voxels`` computes
-        the same convolution; the port always uses the plain table.)"""
+        """Voxel scatter-mean (semantic || geometric) + student forward;
+        from ``student.zstack_min_voxels`` voxels on, the student's 3^3
+        convs run z-stacked (``ops.sparse_conv.ZStackTable``, residual
+        budget max(16384, M // 16)): the same convolution."""
         M = batch.voxel_coords.shape[0]
         p2v = torch.where(batch.point_valid, batch.point2voxel.long(), M)
         voxel_sem = segment_mean(f2d, p2v, M)
         voxel_geom = segment_mean(batch.geom_feats.to(torch.float32), p2v, M)
         voxel_in = torch.cat([voxel_sem, voxel_geom], 1)
         nbr = build_neighbor_table(batch.voxel_coords, batch.voxel_valid)
+        if M >= self.cfg.student.zstack_min_voxels:
+            nbr = build_zstack_table(batch.voxel_coords, batch.voxel_valid, nbr,
+                                     res_budget=max(16384, M // 16))
         embed = self.student(voxel_in, nbr, batch.voxel_valid)
         return voxel_in, embed, p2v
 
@@ -249,7 +253,9 @@ class GeoPurifyPipeline:
         return geometry_guided_pooling(
             embed, feats, batch.voxel_coords, batch.voxel_valid,
             k=pc.knn_k, sharpen=pc.sharpen, num_iterations=pc.num_iterations,
-            spmm_mode=pc.spmm_mode, band=pc.band, max_residual=pc.max_residual)
+            spmm_mode=pc.spmm_mode, band=pc.band, max_residual=pc.max_residual,
+            knn_mode=pc.knn_mode, knn_radius=pc.knn_radius,
+            knn_candidates=pc.knn_candidates)
 
     # geopurify_tpu/models/pipeline.py:354
     def _pool_scene(self, f2d, batch: SceneBatch):

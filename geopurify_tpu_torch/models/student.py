@@ -5,8 +5,11 @@ hidden) + BN + ReLU, ``num_res_blocks`` residual blocks of two 3^3 convs
 with BN, and a 1^3 projection to the embedding dim. BatchNorm is
 mask-aware: ``train=True`` (Stage-1) normalises with the batch moments of
 the valid rows and updates the running statistics in place; ``train=False``
-(Stage-2) uses the running statistics. The parameter and buffer names
-follow the JAX tree so ``utils.from_jax`` maps them 1:1.
+(Stage-2) uses the running statistics. ``neighbor_idx`` goes to every 3^3
+conv as given: the plain table, or in the Stage-2 forward of large scenes a
+``ops.sparse_conv.ZStackTable`` (the same convolution, z-stacked). The
+parameter and buffer names follow the JAX tree so ``utils.from_jax`` maps
+them 1:1.
 """
 
 from __future__ import annotations

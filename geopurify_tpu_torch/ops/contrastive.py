@@ -16,7 +16,12 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from geopurify_tpu_torch.ops.knn import _chunked_topk_min, knn_anchors_grid
+from geopurify_tpu_torch.ops.knn import (
+    _chunked_topk_min,
+    _matmul_f32,
+    knn_anchors_grid,
+    knn_search,
+)
 
 
 # geopurify_tpu/ops/contrastive.py:29
@@ -30,17 +35,6 @@ class ContrastivePairs(NamedTuple):
 # geopurify_tpu/ops/contrastive.py:36
 def _normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x / torch.clamp(torch.linalg.norm(x, dim=-1, keepdim=True), min=eps)
-
-
-def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b in full f32 on every device (TF32 off for the call), as the
-    JAX version's ``Precision.HIGHEST``."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        return a @ b
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 # geopurify_tpu/ops/contrastive.py:64-75
@@ -73,16 +67,27 @@ def pairs_from_anchors(
     spatial_k: int = 96,
     anchor_tile: int = 512,
     spatial_radius: float = 0.3,
+    spatial_method: str = "grid",
 ) -> ContrastivePairs:
-    """The deterministic part of the sampler, given the anchors."""
+    """The deterministic part of the sampler, given the anchors. The
+    anchors' spatial kNN, where no ``neighbor_idx`` is given: 'grid' the
+    pruned ``knn_anchors_grid`` at ``spatial_radius``, 'brute' the full
+    ``knn_search`` (geopurify_tpu/ops/contrastive.py:77-97); the same
+    neighbours for every anchor on a valid point."""
+    if spatial_method not in ("grid", "brute"):
+        raise ValueError(f"unknown spatial_method {spatial_method!r}")
     f = _normalize(teacher_feats.to(torch.float32))
     f = torch.where(valid[:, None], f, 0.0)
     aidx = anchor_idx.long()
     if neighbor_idx is None:
         if coords is None:
             raise ValueError("pass either neighbor_idx or coords")
-        _, anbr = knn_anchors_grid(coords.to(torch.float32), valid, aidx,
-                                   k=spatial_k, radius=spatial_radius)
+        cf = coords.to(torch.float32)
+        if spatial_method == "grid":
+            _, anbr = knn_anchors_grid(cf, valid, aidx, k=spatial_k, radius=spatial_radius)
+        else:
+            _, anbr = knn_search(cf[aidx], cf, valid, k=spatial_k, query_ids=aidx,
+                                 exclude_identical_index=True)
     else:
         anbr = neighbor_idx[aidx]
     anbr = anbr.long()
@@ -133,16 +138,13 @@ def sample_contrastive_pairs_hybrid(
     spatial_method: str = "grid",
     spatial_radius: float = 0.3,
 ) -> ContrastivePairs:
-    """Anchors from ``generator``, then ``pairs_from_anchors``. Both JAX
-    spatial methods ('grid' and 'brute') are exact kNN searches; the port
-    has the one brute force for either."""
-    if spatial_method not in ("grid", "brute"):
-        raise ValueError(f"unknown spatial_method {spatial_method!r}")
+    """Anchors from ``generator``, then ``pairs_from_anchors``."""
     anchor_idx, anchor_valid = select_anchors(generator, valid, num_anchors)
     return pairs_from_anchors(
         teacher_feats, valid, anchor_idx, anchor_valid, neighbor_idx=neighbor_idx,
         coords=coords, num_macro=num_macro, num_micro=num_micro,
-        spatial_k=spatial_k, anchor_tile=anchor_tile, spatial_radius=spatial_radius)
+        spatial_k=spatial_k, anchor_tile=anchor_tile, spatial_radius=spatial_radius,
+        spatial_method=spatial_method)
 
 
 # geopurify_tpu/ops/contrastive.py:162

@@ -1,13 +1,15 @@
 """Geometry-guided pooling — the Stage-2 smoothing core.
 
 Port of geopurify_tpu/ops/pooling.py: an exact kNN-96 graph over voxel
-coordinates, edge weights softmax_k(sharpen * cos(e_i, e_j)) from the
-student embeddings, then ``num_iterations`` rounds of F <- A @ F. The
-default ``banded`` mode reorders voxels along the Hilbert curve, splits A
-into a banded-dense operator S (applied by kernel K1, ops/band.py) plus an
-exact row-sorted residual of out-of-window edges, and falls back to the
-fixed-degree gather when the residual overflows its capacity. Both paths
-carry the features in bf16 between rounds, as the JAX package does.
+coordinates (the pruned ``ops/knn.knn_self_grid`` by default, the brute
+force with ``knn_mode='full'``), edge weights softmax_k(sharpen *
+cos(e_i, e_j)) from the student embeddings, then ``num_iterations``
+rounds of F <- A @ F. The default ``banded`` mode reorders voxels along
+the Hilbert curve, splits A into a banded-dense operator S (applied by
+kernel K1, ops/band.py) plus an exact row-sorted residual of out-of-window
+edges, and falls back to the fixed-degree gather when the residual
+overflows its capacity. Both paths carry the features in bf16 between
+rounds, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from geopurify_tpu_torch.ops.band import banded_window_matmul
-from geopurify_tpu_torch.ops.knn import knn_self_grid
+from geopurify_tpu_torch.ops.knn import knn_search, knn_self_grid
 from geopurify_tpu_torch.ops.morton import hilbert_code
 
 RES_GROUP = 8
@@ -30,13 +32,25 @@ def build_affinity_graph(
     valid: torch.Tensor,         # [M] bool
     k: int = 96,
     sharpen: float = 20.0,
+    knn_mode: str = "grid",
+    knn_radius: int = 12,
+    knn_candidates: int = 4096,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(neighbor_idx [M, k] int32, weights [M, k] f32 row-stochastic);
-    invalid rows and unfilled kNN slots get zero weight. The JAX
-    ``knn_mode`` / ``knn_radius`` / ``knn_candidates`` pick among TPU search
-    strategies that all give these exact neighbours; the port has one."""
+    invalid rows and unfilled kNN slots get zero weight. ``knn_mode``
+    'grid' (the default) takes the pruned ``knn_self_grid`` at
+    ``knn_radius`` / ``knn_candidates``, 'full' the brute-force
+    ``knn_search``: the same neighbours on every valid row, bit for bit."""
     M = embeddings.shape[0]
-    dists, nbr = knn_self_grid(voxel_coords, valid, k=k)
+    if knn_mode == "grid":
+        dists, nbr = knn_self_grid(voxel_coords, valid, k=k, radius=knn_radius,
+                                   num_candidates=knn_candidates)
+    elif knn_mode == "full":
+        ids = torch.arange(M, device=voxel_coords.device)
+        dists, nbr = knn_search(voxel_coords, voxel_coords, valid, k=k, query_ids=ids,
+                                exclude_identical_index=True)
+    else:
+        raise ValueError(f"unknown knn_mode {knn_mode!r}")
     e = embeddings.to(torch.float32)
     e = e / torch.clamp(torch.linalg.norm(e, dim=-1, keepdim=True), min=1e-12)
     aff = torch.empty((M, k), dtype=torch.float32, device=e.device)
@@ -246,12 +260,16 @@ def geometry_guided_pooling(
     spmm_mode: str = "banded",
     band: int = 12288,
     max_residual: int = 262144,
+    knn_mode: str = "grid",
+    knn_radius: int = 12,
+    knn_candidates: int = 4096,
 ) -> Tuple[torch.Tensor, int]:
     """Graph build + iterated aggregation. Returns (smoothed feats [M, C],
     band overflow: edges past the residual capacity; > 0 means the exact
     gather path ran instead of the banded one)."""
     nbr, w = build_affinity_graph(embeddings, voxel_coords, valid, k=k,
-                                  sharpen=sharpen)
+                                  sharpen=sharpen, knn_mode=knn_mode,
+                                  knn_radius=knn_radius, knn_candidates=knn_candidates)
     M = feats.shape[0]
     if spmm_mode == "banded" and M > band:
         code = torch.where(valid, hilbert_code(torch.clamp(voxel_coords, min=0)),

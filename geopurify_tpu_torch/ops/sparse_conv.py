@@ -1,16 +1,17 @@
 """Sparse 3D convolution over a 27-neighbour table.
 
-Port of geopurify_tpu/ops/sparse_conv.py (the plain-table path; the
-z-stacked large-M path, sparse_conv.py:225-375, is a TPU layout
-optimisation gated on M >= 131072 and is not part of this port).
-``out[i] = sum_k F[nbr[i, k]] @ W[k]`` with a zero sentinel row M for
-absent neighbours — MinkowskiEngine's semantics.
+Port of geopurify_tpu/ops/sparse_conv.py. ``out[i] = sum_k F[nbr[i, k]] @
+W[k]`` with a zero sentinel row M for absent neighbours — MinkowskiEngine's
+semantics — over the plain table (the tap scan, forward and backward), or,
+in the forward of large scenes, over a ``ZStackTable``: 9 gathers of
+3C-wide rows in place of 27 of C-wide ones, plus an exact residual for the
+z-holes (sparse_conv.py:225-405).
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -124,15 +125,118 @@ class _Conv3(torch.autograd.Function):
                 dw.to(weights.dtype) if need_w else None, None)
 
 
+# geopurify_tpu/ops/sparse_conv.py:225
+class ZStackTable(NamedTuple):
+    """The z-stacked 3^3 conv's tables. Lex-sorted voxels put (x, y, z-1)
+    and (x, y, z+1) at the rows next to (x, y, z) whenever they exist, so
+    the three dz taps of a kernel column (dx, dy) share one gather at the
+    dz=0 tap's row of H = [f(z-pred) || f || f(z-succ)]. A column whose dz=0
+    voxel is absent while a dz=+-1 one exists (a z-hole) is added by an
+    exact per-tap residual; ``overflow``: a tap's residual exceeded its
+    budget, and ``sparse_conv3`` runs the tap scan instead."""
+
+    nbr: torch.Tensor        # [M, 27] the plain table
+    t_mid: torch.Tensor      # [M, 9] dz=0 tap index per column (sentinel M)
+    has_pred: torch.Tensor   # [M] row i-1 is i's z-predecessor
+    has_succ: torch.Tensor   # [M] row i+1 is i's z-successor
+    res_dst: torch.Tensor    # [18, B] destination rows (pad M)
+    res_src: torch.Tensor    # [18, B] source rows (pad M: the zero sentinel)
+    res_cnt: torch.Tensor    # [18] live edges per residual tap
+    overflow: torch.Tensor   # [] bool
+
+
+# residual tap ids: dz=-1 and dz=+1 of each of the 9 (dx, dy) columns
+_Z_RES_TAPS = np.array([k for c in range(9) for k in (3 * c, 3 * c + 2)], dtype=np.int64)
+
+# forward calls of ``sparse_conv3`` on a ZStackTable, by the route taken
+ZSTACK_ROUTES = {"zstack": 0, "overflow": 0}
+
+
+# geopurify_tpu/ops/sparse_conv.py:268
+def build_zstack_table(
+    voxel_coords: torch.Tensor,   # [M, 3] int, lex-sorted
+    voxel_valid: torch.Tensor,    # [M] bool
+    neighbor_idx: torch.Tensor,   # [M, 27] from build_neighbor_table
+    res_budget: int = 16384,
+) -> ZStackTable:
+    """The z-stack tables from the 27-neighbour table, once a scene (shared
+    by every 3^3 conv, like the table). Each residual tap keeps its
+    live-while-mid-absent edges in row order, the first ``res_budget``."""
+    M = neighbor_idx.shape[0]
+    dev = neighbor_idx.device
+    step = torch.tensor([0, 0, 1], dtype=voxel_coords.dtype, device=dev)
+    adj = ((voxel_coords[1:] - voxel_coords[:-1] == step).all(-1)
+           & voxel_valid[1:] & voxel_valid[:-1])
+    no = torch.zeros((1,), dtype=torch.bool, device=dev)
+    has_pred = torch.cat([no, adj])
+    has_succ = torch.cat([adj, no])
+    t_mid = neighbor_idx[:, 1::3]
+    ks = torch.as_tensor(_Z_RES_TAPS, device=dev)
+    mask = ((neighbor_idx[:, ks] < M)
+            & (t_mid >= M).repeat_interleave(2, dim=1)).T       # [18, M]
+    cnt = mask.sum(1)
+    B = res_budget
+    tap, row = torch.nonzero(mask, as_tuple=True)              # tap-major, rows ascending
+    rank = torch.arange(tap.shape[0], device=dev) - (torch.cumsum(cnt, 0) - cnt)[tap]
+    keep = rank < B
+    tap, row, rank = tap[keep], row[keep], rank[keep]
+    dst = torch.full((18, B), M, dtype=neighbor_idx.dtype, device=dev)
+    src = torch.full((18, B), M, dtype=neighbor_idx.dtype, device=dev)
+    dst[tap, rank] = row.to(dst.dtype)
+    src[tap, rank] = neighbor_idx[row, ks[tap]]
+    return ZStackTable(neighbor_idx, t_mid, has_pred, has_succ, dst, src,
+                       cnt.to(torch.int32), (cnt > B).any())
+
+
+# geopurify_tpu/ops/sparse_conv.py:329
+def _conv_zstack(features, zt: ZStackTable, weights, valid):
+    """The z-stacked conv body: equal to ``_conv_core`` when ``zt.overflow``
+    is false. The centre column (dx, dy) = (0, 0) is the identity on valid
+    rows and runs as a direct matmul; each residual tap adds its edges,
+    whose destinations are unique, by a gather and an indexed write."""
+    M, Cin = features.shape
+    Cout = weights.shape[2]
+    zero = features.new_zeros((1, Cin))
+    fm = torch.where(zt.has_pred[:, None], torch.cat([zero, features[:-1]]), 0.0)
+    fp = torch.where(zt.has_succ[:, None], torch.cat([features[1:], zero]), 0.0)
+    H = torch.cat([fm, features, fp], 1)
+    H = torch.cat([H, H.new_zeros((1, 3 * Cin))])
+    Wz = weights.reshape(9, 3 * Cin, Cout)
+    t_mid = zt.t_mid.long()
+    acc = _mm32(H[:M], Wz[4])
+    for c in (0, 1, 2, 3, 5, 6, 7, 8):
+        acc += _mm32(H[t_mid[:, c]], Wz[c])
+    f_pad = torch.cat([features, zero])
+    for t, n in enumerate(zt.res_cnt.tolist()):
+        if n:
+            dst = zt.res_dst[t, :n].long()
+            acc[dst] = acc[dst] + _mm32(f_pad[zt.res_src[t, :n].long()],
+                                        weights[int(_Z_RES_TAPS[t])])
+    return torch.where(valid[:, None], acc, 0.0)
+
+
 # geopurify_tpu/ops/sparse_conv.py:376
 def sparse_conv3(
     features: torch.Tensor,      # [M, Cin]
-    neighbor_idx: torch.Tensor,  # [M, K] int32 (sentinel == M)
+    neighbor_idx,                # [M, K] int32 table (sentinel == M) or ZStackTable
     weights: torch.Tensor,       # [K, Cin, Cout]
     valid: torch.Tensor,         # [M] bool
     bias: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    out = _Conv3.apply(features, neighbor_idx, weights, valid)
+    """With a ``ZStackTable`` the z-stacked forward runs, or the tap scan on
+    its plain table where the residual overflowed (the JAX semantics; each
+    call counted in ``ZSTACK_ROUTES``). The z-stack is forward only: the
+    training step keeps the plain table and ``_Conv3``'s backward."""
+    if isinstance(neighbor_idx, ZStackTable):
+        zt = neighbor_idx
+        if bool(zt.overflow):
+            ZSTACK_ROUTES["overflow"] += 1
+            out = _conv_core(features, zt.nbr, weights, valid)
+        else:
+            ZSTACK_ROUTES["zstack"] += 1
+            out = _conv_zstack(features, zt, weights, valid)
+    else:
+        out = _Conv3.apply(features, neighbor_idx, weights, valid)
     if bias is not None:
         out = torch.where(valid[:, None], out + bias[None, :].float(), 0.0)
     return out.to(features.dtype)
