@@ -97,7 +97,28 @@ Phases (any failure exits non-zero; each prints its seconds):
    anchors over P=2^20 points) against ``knn_search`` (equal), and the
    full-width student with a ``ZStackTable`` (its budget raised to the
    largest tap where the pipeline's overflows) against the plain table
-   (within 2e-4 of the embedding scale), each with both times.
+   (within 2e-4 of the embedding scale), each with both times;
+15. the 2D family, which launches neither kernel (both counts read 0):
+   (a) ``run.infer2d.main`` at ``scannet`` (FocalNet-L X-Decoder in bf16 at
+   484x648) through ``xdecoder.ckpt``, a LeCun-seeded checkpoint with
+   caption slots written by the port's inverse converter, over synthetic
+   480x640 frames: semseg (rich overlay), panoseg, instseg, refseg and
+   captioning (20 greedy steps) on 3 images each, retrieval over a gallery
+   of 4, and ``--eval-list`` over 8 image / label-png pairs, with seconds
+   an image from the second image on, the pipeline built once, and the
+   peak memory; more than one class must win a semseg map, the caption
+   ids lie in the vocabulary and the mIoU is finite; (b) one forward of
+   each alternative X-Decoder at full width (bf16, 484x648): focal_dw
+   FocalNet-L, DaViT (96-768, depths 1-1-3-1), ViT-B (768 wide, 12 deep,
+   window 14) and FocalNet-L with the deformable pixel decoder (6 layers,
+   8 heads, 4 points, 3 scales), median ms of 3 after a warm-up, peak
+   memory, finite outputs, and ms_deform_attn's share of the deformable
+   forward; (c) the card against the CPU in f32 with TF32 off at narrow
+   widths: each configuration of (b) (pixel features, and the head on the
+   CPU's attention masks, rel < 1e-4), ms_deform_attn with sampling points
+   outside the maps, and every infer2d task at the ``tiny`` preset (logits
+   within 1e-4, semseg flips only at near-ties, equal tables, caption ids,
+   ranking and mIoU).
 
 A K1 row at a preset's class count (or feature space's 512) that is
 slower than its library call is flagged (``FLAG:`` lines naming the preset,
@@ -110,6 +131,7 @@ chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -1938,6 +1960,471 @@ def phase_grid_search(mods, scene0):
                              preset_overflow=bool(zt_preset.overflow)))
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the 2D family (run.infer2d, the alternative X-Decoders)
+# ---------------------------------------------------------------------------
+
+INFER2D_CLASSES = 8                    # the first 8 of scannet's 20 class names
+INFER2D_GALLERY = 4
+INFER2D_EVAL_PAIRS = 8
+CAPTION_STEPS = 20
+
+
+def synthetic_photo(rng, hw=(480, 640)):
+    """A 480x640 RGB frame of coloured rectangles over noise, uint8."""
+    img = rng.integers(0, 256, (*hw, 3), dtype=np.uint8)
+    for _ in range(6):
+        y, x = rng.integers(0, hw[0] - 60), rng.integers(0, hw[1] - 80)
+        img[y:y + rng.integers(40, 240), x:x + rng.integers(60, 320)] = rng.integers(0, 256, 3)
+    return img
+
+
+def write_2d_inputs(root: Path, rng, classes: int):
+    """Three query images, a gallery of 4, and 8 image / label-png pairs
+    (ids 0..classes-1 and the 255 ignore) listed in ``eval.txt``."""
+    from PIL import Image
+
+    paths = []
+    for i in range(3):
+        paths.append(root / f"query{i}.png")
+        Image.fromarray(synthetic_photo(rng)).save(paths[-1])
+    (root / "gallery").mkdir()
+    for i in range(INFER2D_GALLERY):
+        Image.fromarray(synthetic_photo(rng)).save(root / "gallery" / f"g{i}.jpg")
+    lines = []
+    for i in range(INFER2D_EVAL_PAIRS):
+        Image.fromarray(synthetic_photo(rng)).save(root / f"eval{i}.png")
+        gt = rng.integers(0, classes, (480, 640)).astype(np.uint8)
+        gt[:40] = 255
+        Image.fromarray(gt).save(root / f"eval{i}_gt.png")
+        lines.append(f"{root / f'eval{i}.png'} {root / f'eval{i}_gt.png'}")
+    (root / "eval.txt").write_text("\n".join(lines) + "\n")
+    return [str(p) for p in paths]
+
+
+def seed_2d(model, seed: int, device):
+    """``seed_lecun`` for an X-Decoder module (every backbone and pixel
+    decoder, the caption slots)."""
+    seed_lecun(type("Teacher", (), dict(xdecoder=model))(), seed, device)
+
+
+def captioning_checkpoint(mods, root: Path, cfg, device="cuda"):
+    """The full-width ``scannet`` X-Decoder with caption slots (77 tokens),
+    LeCun-seeded, and a language tower initialised as ``build_pipeline``
+    does, at a logit scale of 50, written in the reference layout."""
+    t = cfg.text
+    lang = mods["lang"].LanguageEncoder(t.vocab_size, t.width, t.layers, t.heads,
+                                        t.context_length, t.dim_proj)
+    mods["lang"].init_language_(lang, torch.Generator().manual_seed(cfg.train.manual_seed))
+    with torch.no_grad():
+        lang.logit_scale.fill_(float(np.log(50.0)))
+    xdec = mods["xdec"].XDecoderSegModel(cfg.xdecoder, caption_len=t.context_length).to(device)
+    seed_2d(xdec, 7, device)
+    path = root / "xdecoder_captioning.pt"
+    t0 = time.perf_counter()
+    mb = save_reference(path, mods["convx"].synthesize_torch_state_dict(xdec, lang))
+    log(f"captioning X-Decoder checkpoint: {mb:.0f} MB in {time.perf_counter() - t0:.1f} s")
+    del xdec
+    return path
+
+
+class Recorder:
+    """Wraps ``owner.name`` to keep what it returns (the runs' maps, caption
+    ids); ``restore`` puts the original back."""
+
+    def __init__(self):
+        self.saved, self.out = [], {}
+
+    def wrap(self, owner, name, key, pick=lambda a, r: r):
+        fn = getattr(owner, name)
+        self.saved.append((owner, name, fn))
+
+        def rec(*a, **k):
+            r = fn(*a, **k)
+            self.out.setdefault(key, []).append(pick(a, r))
+            return r
+
+        setattr(owner, name, rec)
+
+    def restore(self):
+        for owner, name, fn in reversed(self.saved):
+            setattr(owner, name, fn)
+
+
+def infer2d_run(mods, args, device="cuda"):
+    """``run.infer2d.main(args)`` with its seconds."""
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = mods["infer2d"].main([*args, "--device", device])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase15_infer2d(mods, root: Path, ckpt: Path, classes, preset="scannet", extra=(),
+                    device="cuda"):
+    """(a) every task of ``run.infer2d.main`` at ``preset`` through
+    ``xdecoder.ckpt``; the pipeline is built once (the first run's start-up
+    is reported apart) and each task times its images from the second on."""
+    train_mod, inf2d = mods["train"], mods["infer2d"]
+    paths = write_2d_inputs(root, np.random.default_rng(15), len(classes))
+    base = ["--preset", preset, "--classes", ",".join(classes), f"xdecoder.ckpt={ckpt}",
+            *extra]
+    run = functools.partial(infer2d_run, device=device)
+    built, build, fwd_s = {}, train_mod.build_pipeline, []
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def build_once(cfg, gen, **kw):
+        if "p" not in built:
+            t0 = time.perf_counter()
+            built["p"] = build(cfg, gen, **kw)
+            built["s"] = time.perf_counter() - t0
+            model = built["p"][0].xdecoder
+            forward = model.forward
+
+            def timed(*a, **k):             # the X-Decoder forward's share of an image
+                sync()
+                t1 = time.perf_counter()
+                r = forward(*a, **k)
+                sync()
+                fwd_s.append(time.perf_counter() - t1)
+                return r
+
+            model.forward = timed
+        return built["p"]
+
+    rec = Recorder()
+    train_mod.build_pipeline = build_once
+    rec.wrap(inf2d, "semseg_from_outputs", "semseg", lambda a, r: r.cpu())
+    rec.wrap(mods["lang"].HashTokenizer, "decode", "caption_ids",
+             lambda a, r: np.asarray(a[1]))
+    tasks = {
+        "semseg": ["--rich-overlay"],
+        # thresholds low enough for seeded weights' segments to pass
+        "panoseg": ["--things", ",".join(classes[2:]), "--object-threshold", "0.05",
+                    "--overlap-threshold", "0.0"],
+        "instseg": ["--topk", "5"],
+        "refseg": ["--phrases", "a chair,the floor"],
+        "captioning": ["--caption-steps", str(CAPTION_STEPS)],
+    }
+    out = {}
+    try:
+        for task, targs in tasks.items():
+            secs, fwd = [], []
+            for i, img in enumerate(paths):
+                n0 = len(fwd_s)
+                dst, s = run(mods, ["--image", img, "--task", task,
+                                    "--out", str(root / f"{task}{i}.png"), *targs, *base])
+                assert os.path.exists(dst) and os.path.getsize(dst) > 0, dst
+                secs.append(s)
+                fwd.append(sum(fwd_s[n0:]))
+            out[task] = dict(s_per_image=secs[1:], first_s=secs[0], forward_s=fwd[1:])
+            log(f"  infer2d {task}: {', '.join(f'{v:.3f}' for v in secs[1:])} s an image, "
+                f"X-Decoder forward {', '.join(f'{v:.3f}' for v in fwd[1:])} s "
+                f"(first {secs[0]:.2f} s)")
+        secs = []
+        for i in range(2):
+            dst, s = run(mods, ["--image", paths[i], "--task", "retrieval",
+                                "--phrases", "a chair,a bright room",
+                                "--gallery", str(root / "gallery"),
+                                "--out", str(root / f"ret{i}.png"), *base])
+            ranking = json.loads(Path(dst).read_text())
+            assert all(len(v) == 1 + INFER2D_GALLERY for v in ranking.values()), ranking
+            secs.append(s / (1 + INFER2D_GALLERY))
+        out["retrieval"] = dict(s_per_image=secs[1:], first_s=secs[0])
+        log(f"  infer2d retrieval (gallery of {INFER2D_GALLERY}): {secs[1]:.3f} s an image")
+        res, s = run(mods, ["--eval-list", str(root / "eval.txt"), *base])
+        assert np.isfinite(res["mIoU"]), res
+        out["eval_list"] = dict(s_per_image=[s / INFER2D_EVAL_PAIRS], mIoU=res["mIoU"],
+                                pACC=res["pACC"])
+        log(f"  infer2d --eval-list over {INFER2D_EVAL_PAIRS} pairs: "
+            f"{s / INFER2D_EVAL_PAIRS:.3f} s an image, mIoU {res['mIoU']:.2f}")
+    finally:
+        train_mod.build_pipeline = build
+        rec.restore()
+    out["build_pipeline_s"] = built["s"]
+    wins = [int(np.unique(m.numpy()).size) for m in rec.out["semseg"]]
+    assert max(wins) > 1, f"one class wins every semseg map: {wins}"
+    ids = np.concatenate(rec.out["caption_ids"])
+    cfg = mods["cfg"].load_config(preset, overrides=list(extra))
+    assert len(rec.out["caption_ids"]) == len(paths)
+    assert ((ids >= 0) & (ids < cfg.text.vocab_size)).all(), ids
+    out.update(classes_winning=wins, caption_ids=rec.out["caption_ids"][0][:CAPTION_STEPS]
+               .tolist())
+    log(f"  semseg classes winning per map {wins}; caption ids "
+        f"{out['caption_ids'][:8]}...; build_pipeline {built['s']:.1f} s")
+    return out
+
+
+ALT_CONFIGS = {
+    "FocalNet-L (scannet, the yardstick)": [],
+    "focal_dw FocalNet-L": ["xdecoder.backbone.variant=focal_dw"],
+    "DaViT": ["xdecoder.backbone_type=davit"],
+    "ViT-B": ["xdecoder.backbone_type=vit"],
+    "FocalNet-L + deformable decoder": ["xdecoder.pixel_decoder=deform"],
+}
+
+
+def phase15_alt_configs(mods, text_dim=512):
+    """(b) one forward of each alternative configuration (and of the
+    ``scannet`` FocalNet-L as the yardstick) at full width, bf16, 484x648:
+    median ms of 3 after a warm-up, peak memory; the deformable one's
+    ms_deform_attn time from an instrumented forward."""
+    pdd = mods["pdd"]
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    img = torch.rand((1, 484, 648, 3), generator=g, device="cuda") * 255
+    text = text_embeddings(21, text_dim, seed=3).cuda()
+    for name, over in ALT_CONFIGS.items():
+        cfg = mods["cfg"].load_config("scannet", overrides=over).xdecoder
+        model = mods["xdec"].XDecoderSegModel(cfg).to("cuda").eval()
+        seed_2d(model, 11, "cuda")
+        n_par = sum(p.numel() for p in model.parameters())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            o = model(img, text, 50.0)
+            ms = []
+            for _ in range(3):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                o = model(img, text, 50.0)
+                b.record()
+                torch.cuda.synchronize()
+                ms.append(a.elapsed_time(b))
+            finite = all(bool(torch.isfinite(v.float()).all()) for k, v in o.items()
+                         if k != "padded_hw")
+            assert finite, name
+            rec = dict(ms=float(np.median(ms)), ms_all=ms, params_M=n_par / 1e6,
+                       peak_GiB=torch.cuda.max_memory_allocated() / 2 ** 30,
+                       pred_masks=list(o["pred_masks"].shape))
+            if cfg.pixel_decoder == "deform":
+                calls, fn = [], pdd.ms_deform_attn
+
+                def timed(*a, **k):
+                    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    e0.record()
+                    r = fn(*a, **k)
+                    e1.record()
+                    calls.append((e0, e1))
+                    return r
+
+                pdd.ms_deform_attn = timed
+                try:
+                    model(img, text, 50.0)
+                finally:
+                    pdd.ms_deform_attn = fn
+                torch.cuda.synchronize()
+                rec["ms_deform_attn_ms"] = sum(a.elapsed_time(b) for a, b in calls)
+                rec["ms_deform_attn_calls"] = len(calls)
+                rec["ms_deform_attn_share"] = rec["ms_deform_attn_ms"] / rec["ms"]
+        out[name] = rec
+        log(f"  {name}: {rec['params_M']:.1f} M parameters, {rec['ms']:.2f} ms a forward "
+            f"({', '.join(f'{v:.2f}' for v in ms)}), peak {rec['peak_GiB']:.2f} GiB"
+            + (f"; ms_deform_attn {rec['ms_deform_attn_ms']:.2f} ms over "
+               f"{rec['ms_deform_attn_calls']} calls ({100 * rec['ms_deform_attn_share']:.1f}%)"
+               if "ms_deform_attn_ms" in rec else ""))
+        del model, o
+        torch.cuda.empty_cache()
+    return out
+
+
+def rel_err(a, b) -> float:
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def narrow_cfg(mods, over):
+    return mods["cfg"].load_config("tiny", overrides=[
+        "xdecoder.mask_shape=[128,192]", "xdecoder.enc_layers=2", *over]).xdecoder
+
+
+def phase15_card_vs_cpu(mods, root: Path, dev="cuda"):
+    """(c) the card against the CPU in f32 with TF32 off, at narrow widths:
+    each configuration of (b) (pixel features, then the head with both on
+    the CPU's attention masks: rel < 1e-4), ms_deform_attn with sampling
+    points outside the maps, and the infer2d tasks at the tiny preset."""
+    out = {}
+    g = torch.Generator().manual_seed(5)
+    img = torch.rand((2, 128, 192, 3), generator=g) * 255
+    text = torch.randn((5, 16), generator=g)
+    text = text / text.norm(dim=-1, keepdim=True)
+    xd = mods["xdec"]
+    for name, over in {"focal_dw": ["xdecoder.backbone.variant=focal_dw"],
+                       "DaViT": ["xdecoder.backbone_type=davit"],
+                       "ViT-B": ["xdecoder.backbone_type=vit"],
+                       "deformable decoder": ["xdecoder.pixel_decoder=deform"]}.items():
+        cpu = xd.XDecoderSegModel(narrow_cfg(mods, over)).eval()
+        seed_2d(cpu, 21, "cpu")
+        gpu = xd.XDecoderSegModel(narrow_cfg(mods, over)).eval()
+        gpu.load_state_dict(cpu.state_dict())
+        gpu.to(dev)
+        with torch.inference_mode():
+            mf_c, ms_c = xd.encode_pixel_features(cpu, img)
+            head_c = xd.apply_head(cpu, ms_c, mf_c, text, 20.0, return_attn=True)
+            mf_g, ms_g = xd.encode_pixel_features(gpu, img.to(dev))
+            head_g = xd.apply_head(gpu, ms_g, mf_g, text.to(dev), 20.0,
+                                   attn_mask_override=[m.to(dev) for m in
+                                                       head_c["attn_masks"][:-1]])
+        errs = {"mask_features": rel_err(mf_g, mf_c),
+                "multi_scale": max(rel_err(a, b) for a, b in zip(ms_g, ms_c))}
+        errs.update({k: rel_err(head_g[k], head_c[k])
+                     for k in ("pred_logits", "pred_masks", "mask_embed", "cls_embed")})
+        assert max(errs.values()) < 1e-4, (name, errs)
+        out[name] = errs
+        log(f"  card vs CPU, {name}: max rel {max(errs.values()):.2e}")
+    # ms_deform_attn, a third of the sampling points outside the maps
+    msda = mods["msda"]
+    shapes = ((16, 24), (8, 12), (4, 6))
+    L = sum(h * w for h, w in shapes)
+    value = torch.randn((2, L, 8, 32), generator=g)
+    loc = torch.rand((2, 300, 8, 3, 4, 2), generator=g) * 1.6 - 0.3
+    w = torch.softmax(torch.randn((2, 300, 8, 12), generator=g), -1).reshape(2, 300, 8, 3, 4)
+    with torch.inference_mode():
+        ref = msda.ms_deform_attn(value, shapes, loc, w)
+        got = msda.ms_deform_attn(value.to(dev), shapes, loc.to(dev), w.to(dev))
+    out["ms_deform_attn"] = rel_err(got, ref)
+    assert out["ms_deform_attn"] < 1e-4, out["ms_deform_attn"]
+    log(f"  card vs CPU, ms_deform_attn ({((loc < 0) | (loc > 1)).any(-1).float().mean():.0%} "
+        f"of the points outside): rel {out['ms_deform_attn']:.2e}")
+    out["infer2d"] = infer2d_card_vs_cpu(mods, root, dev)
+    return out
+
+
+def flat_cpu(r):
+    """The tensors of a (nested) tuple of results, on the host."""
+    return [y for x in r for y in (flat_cpu(x) if isinstance(x, tuple) else [x.cpu()])]
+
+
+def infer2d_card_vs_cpu(mods, root: Path, dev="cuda"):
+    """``run.infer2d.main`` at the tiny preset on the card and on the CPU
+    over one seeded captioning checkpoint: the query and mask logits within
+    1e-4, semseg flips only at near-ties, the panoptic and instance tables,
+    the refseg matches and the caption ids equal, the retrieval ranking and
+    the evaluation's mIoU equal."""
+    over = ["text.width=16"]
+    cfg = mods["cfg"].load_config("tiny", overrides=over)
+    t = cfg.text
+    xdec = mods["xdec"].XDecoderSegModel(cfg.xdecoder, caption_len=t.context_length)
+    seed_2d(xdec, 17, "cpu")
+    lang = mods["lang"].LanguageEncoder(t.vocab_size, t.width, t.layers, t.heads,
+                                        t.context_length, t.dim_proj)
+    mods["lang"].init_language_(lang, torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        lang.logit_scale.fill_(float(np.log(30.0)))
+    ckpt = root / "tiny_xdecoder.pt"
+    save_reference(ckpt, mods["convx"].synthesize_torch_state_dict(xdec, lang))
+    classes = "wall,floor,chair,table"
+    query = root / "query0.png"
+    base = ["--preset", "tiny", "--classes", classes, f"xdecoder.ckpt={ckpt}", *over]
+    runs = {
+        "semseg": ["--image", str(query), "--task", "semseg"],
+        "panoseg": ["--image", str(query), "--task", "panoseg", "--object-threshold", "0.2",
+                    "--overlap-threshold", "0.2"],
+        "instseg": ["--image", str(query), "--task", "instseg", "--topk", "4"],
+        "refseg": ["--image", str(query), "--task", "refseg", "--phrases", "a chair,the floor"],
+        "captioning": ["--image", str(query), "--task", "captioning", "--caption-steps", "8"],
+        "retrieval": ["--image", str(query), "--task", "retrieval", "--phrases", "a chair",
+                      "--gallery", str(root / "gallery")],
+        "eval": ["--eval-list", str(root / "eval.txt")],
+    }
+    inf, inf2d = mods["inf"], mods["infer2d"]
+    got = {}
+    for side in ("cpu", dev):
+        rec = Recorder()
+        rec.wrap(inf2d, "semseg_from_outputs", "semseg",
+                 lambda a, r: (a[0].float().cpu(), a[1].float().cpu(), r.cpu()))
+        for fn in ("panoptic_inference", "instance_inference", "grounding_inference"):
+            rec.wrap(inf, fn, fn, lambda a, r: flat_cpu(r))
+        rec.wrap(mods["lang"].HashTokenizer, "decode", "caption_ids",
+                 lambda a, r: np.asarray(a[1]))
+        res = {}
+        try:
+            for task, args in runs.items():
+                res[task] = mods["infer2d"].main([*args, "--out", str(root / f"{side}_{task}.png"),
+                                                  *base, "--device", side])
+        finally:
+            rec.restore()
+        got[side] = (rec.out, res)
+    (c, res_c), (gc, res_g) = got["cpu"], got[dev]
+    out = {"logits": 0.0, "masks": 0.0, "semseg_flips": 0}
+    for (lc, mc, sc), (lg, mg, sg) in zip(c["semseg"], gc["semseg"]):
+        out["logits"] = max(out["logits"], rel_err(lg, lc))
+        out["masks"] = max(out["masks"], rel_err(mg, mc))
+        flips = sc != sg
+        out["semseg_flips"] += int(flips.sum())
+        if flips.any():
+            sem = inf.semantic_inference(lc, mc)
+            sem = mods["layers"].resize_bicubic_antialias(sem[None], tuple(sc.shape))[0]
+            margin = (sem[flips, sc[flips]] - sem[flips, sg[flips]]).abs().max()
+            assert margin < 1e-4 * sem.abs().max(), ("semseg flip off a near-tie", margin)
+    assert out["logits"] < 1e-4 and out["masks"] < 1e-4, out
+    assert out["semseg_flips"] <= 0.001 * sum(s[2].numel() for s in c["semseg"]), out
+    for fn in ("panoptic_inference", "instance_inference", "grounding_inference"):
+        for a, b in zip(c[fn][0], gc[fn][0]):
+            if a.dtype.is_floating_point:
+                assert rel_err(b, a) < 1e-4, fn
+            else:
+                assert torch.equal(a, b), fn
+    assert all(np.array_equal(a, b) for a, b in zip(c["caption_ids"], gc["caption_ids"]))
+    rank_c, rank_g = (json.loads(Path(r["retrieval"]).read_text()) for r in (res_c, res_g))
+    assert [[x["image"] for x in v] for v in rank_c.values()] == \
+        [[x["image"] for x in v] for v in rank_g.values()]
+    if out["semseg_flips"] == 0:
+        assert res_c["eval"]["mIoU"] == res_g["eval"]["mIoU"], (res_c["eval"], res_g["eval"])
+    out["mIoU"] = res_g["eval"]["mIoU"]
+    out["panoptic_segments"] = int(gc["panoptic_inference"][0][3].sum())
+    log(f"  card vs CPU, infer2d tiny: logits rel {out['logits']:.2e}, masks rel "
+        f"{out['masks']:.2e}, semseg flips {out['semseg_flips']}; tables, caption ids, "
+        f"ranking and mIoU ({out['mIoU']:.2f}) equal")
+    return out
+
+
+def phase_2d(mods):
+    """Phase 15: (a) run.infer2d.main at scannet, (b) the alternative
+    X-Decoder configurations at full width, (c) the card against the CPU.
+    Neither kernel lies on this path: both counts are set to 0 before and
+    must read 0 after."""
+    band, nce = mods["band"], mods["nce"]
+    band.banded_window_matmul.launches = 0
+    nce.info_nce_fwd.launches = nce.info_nce_bwd.launches = 0
+    out = {}
+    cfg = mods["cfg"].load_config("scannet")
+    classes = list(cfg.data.all_label[:INFER2D_CLASSES])
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        ckpt = captioning_checkpoint(mods, root, cfg)
+        out["checkpoint_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["infer2d"] = phase15_infer2d(mods, root, ckpt, classes)
+        out["infer2d"]["peak_GiB"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["infer2d_s"] = time.perf_counter() - t
+        log(f"  infer2d peak {out['infer2d']['peak_GiB']:.2f} GiB")
+        t = time.perf_counter()
+        out["alt_configs"] = phase15_alt_configs(mods)
+        out["alt_configs_s"] = time.perf_counter() - t
+        launches = (band.banded_window_matmul.launches, nce.info_nce_fwd.launches,
+                    nce.info_nce_bwd.launches)
+        out["launches"] = launches
+        assert launches == (0, 0, 0), f"K1 / K2 launched on the 2D path: {launches}"
+        t = time.perf_counter()
+        prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            out["card_vs_cpu"] = phase15_card_vs_cpu(mods, root)
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+        out["card_vs_cpu_s"] = time.perf_counter() - t
+    log(f"  K1, K2-fwd, K2-bwd launches on the 2D path: {launches}")
+    return out
+
+
 def load_mods():
     """The port's modules by short name (the rank processes of phase 13
     import them anew)."""
@@ -1947,18 +2434,23 @@ def load_mods():
     from geopurify_tpu_torch.data import loaders as loaders_mod
     from geopurify_tpu_torch.data import synthetic as synth_mod
     from geopurify_tpu_torch.models import lang as lang_mod
+    from geopurify_tpu_torch.models import inference2d as inf_mod
+    from geopurify_tpu_torch.models import layers as layers_mod
     from geopurify_tpu_torch.models import lift as lift_mod
     from geopurify_tpu_torch.models import pipeline as pipe_mod
+    from geopurify_tpu_torch.models import pixel_decoder_deform as pdd_mod
     from geopurify_tpu_torch.models import student as student_mod
     from geopurify_tpu_torch.models import xdecoder as xdec_mod
     from geopurify_tpu_torch.ops import band as band_mod
     from geopurify_tpu_torch.ops import contrastive as ctr_mod
     from geopurify_tpu_torch.ops import infonce as nce_mod
     from geopurify_tpu_torch.ops import knn as knn_mod
+    from geopurify_tpu_torch.ops import ms_deform_attn as msda_mod
     from geopurify_tpu_torch.ops import pooling as pool_mod
     from geopurify_tpu_torch.ops import sparse_conv as sc_mod
     from geopurify_tpu_torch.parallel import mesh as mesh_mod
     from geopurify_tpu_torch.run import dryrun as dryrun_mod
+    from geopurify_tpu_torch.run import infer2d as infer2d_mod
     from geopurify_tpu_torch.run import optim as optim_mod
     from geopurify_tpu_torch.run import precompute as precompute_mod
     from geopurify_tpu_torch.run import train as train_mod
@@ -1971,7 +2463,8 @@ def load_mods():
                 optim=optim_mod, train=train_mod, loaders=loaders_mod,
                 validate=validate_mod, pool=pool_mod, band=band_mod, lang=lang_mod,
                 xdec=xdec_mod, precompute=precompute_mod, convx=convx_mod, convs=convs_mod,
-                mesh=mesh_mod, dryrun=dryrun_mod, lift=lift_mod, sc=sc_mod)
+                mesh=mesh_mod, dryrun=dryrun_mod, lift=lift_mod, sc=sc_mod, inf=inf_mod,
+                layers=layers_mod, pdd=pdd_mod, msda=msda_mod, infer2d=infer2d_mod)
 
 
 def main() -> int:
@@ -2026,6 +2519,7 @@ def main() -> int:
         released = run("12 released checkpoints, on-disk Stage 1", phase_released, mods)
         parallel = run("13 parallel layer", phase_parallel, mods, Path(scenes10))
     grid = run("14 pruned searches and z-stack", phase_grid_search, mods, scene0)
+    two_d = run("15 the 2D family", phase_2d, mods)
 
     # K1 at every shape a main path launched it: the bench-spec scenes
     # (phase 3), the scannet, scannet200 and feature-space preset-scale
@@ -2082,7 +2576,7 @@ def main() -> int:
                   k1_wide={str(k): v for k, v in k1_wide.items()},
                   k1_behind_library=k1_behind, preset=preset,
                   validation_small=val_small, released=released, parallel=parallel,
-                  grid_search=grid)
+                  grid_search=grid, two_d=two_d)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))

@@ -270,6 +270,19 @@ class HashTokenizer:
         """(input_ids [B, L], attention_mask [B, L]) int32, padded/truncated."""
         return _wrap(self, texts)
 
+    # geopurify_tpu/models/lang.py:244
+    def decode(self, ids: Sequence[int]) -> str:
+        """Hashing is one-way: ``<id>`` placeholders, stopping at EOT and
+        dropping SOT."""
+        out = []
+        for i in ids:
+            i = int(i)
+            if i == self.eot:
+                break
+            if i != self.sot:
+                out.append(f"<{i}>")
+        return " ".join(out)
+
 
 # geopurify_tpu/models/lang.py:258
 def build_tokenizer(vocab_path: Optional[str] = None, context_length: int = 77,
@@ -369,6 +382,15 @@ class LanguageEncoder(nn.Module):
         if norm:
             pooled = pooled / (torch.linalg.norm(pooled, dim=-1, keepdim=True) + 1e-7)
         return pooled
+
+    # geopurify_tpu/models/lang.py:361
+    def encode_tokens(self, input_ids) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Token-level embeddings for the captioning decoder: (token_emb
+        [B, T, dim_proj], pooled_emb [B, dim_proj] L2-normalized at EOT)."""
+        tok = self.lang_encoder(input_ids).float() @ self.lang_proj
+        eot = torch.argmax(input_ids, dim=-1)
+        pooled = tok[torch.arange(tok.shape[0], device=tok.device), eot]
+        return tok, pooled / (torch.linalg.norm(pooled, dim=-1, keepdim=True) + 1e-7)
 
     def scale(self) -> torch.Tensor:
         return torch.exp(self.logit_scale)

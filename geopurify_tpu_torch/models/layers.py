@@ -190,77 +190,99 @@ class MultiHeadAttention(nn.Module):
 
 # geopurify_tpu/models/layers.py:132
 class SelfAttentionLayer(nn.Module):
-    """Post-norm DETR self-attention; pos added to q and k only."""
+    """DETR self-attention, post-norm (or ``pre_norm``); pos added to q and
+    k only."""
 
-    def __init__(self, dim: int, num_heads: int, dtype=torch.float32):
+    def __init__(self, dim: int, num_heads: int, dtype=torch.float32,
+                 pre_norm: bool = False):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.pre_norm = dtype, pre_norm
         self.self_attn = MultiHeadAttention(dim, num_heads, dtype)
         self.norm = LayerNorm(dim)
 
     def forward(self, tgt, query_pos, tgt_mask=None):
-        q = tgt + query_pos
-        return self.norm(tgt + self.self_attn(q, q, tgt, mask=tgt_mask)).to(self.dtype)
+        x = self.norm(tgt) if self.pre_norm else tgt
+        q = x + query_pos
+        attn = self.self_attn(q, q, x, mask=tgt_mask)
+        if self.pre_norm:
+            return tgt + attn
+        return self.norm(tgt + attn).to(self.dtype)
 
 
 # geopurify_tpu/models/layers.py:154
 class CrossAttentionLayer(nn.Module):
-    """Post-norm masked cross-attention; pos added to the keys only."""
+    """Masked cross-attention, post-norm (or ``pre_norm``); pos added to the
+    keys only."""
 
-    def __init__(self, dim: int, num_heads: int, dtype=torch.float32):
+    def __init__(self, dim: int, num_heads: int, dtype=torch.float32,
+                 pre_norm: bool = False):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.pre_norm = dtype, pre_norm
         self.multihead_attn = MultiHeadAttention(dim, num_heads, dtype)
         self.norm = LayerNorm(dim)
 
     def forward(self, tgt, memory, memory_mask, pos, query_pos):
-        attn = self.multihead_attn(tgt + query_pos, memory + pos, memory,
-                                   mask=memory_mask)
+        x = self.norm(tgt) if self.pre_norm else tgt
+        attn = self.multihead_attn(x + query_pos, memory + pos, memory, mask=memory_mask)
+        if self.pre_norm:
+            return tgt + attn
         return self.norm(tgt + attn).to(self.dtype)
 
 
 # geopurify_tpu/models/layers.py:175
 class FFNLayer(nn.Module):
-    def __init__(self, dim: int, hidden_dim: int, dtype=torch.float32):
+    def __init__(self, dim: int, hidden_dim: int, dtype=torch.float32,
+                 pre_norm: bool = False):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.pre_norm = dtype, pre_norm
         self.linear1 = Dense(dim, hidden_dim, dtype)
         self.linear2 = Dense(hidden_dim, dim, dtype)
         self.norm = LayerNorm(dim)
 
     def forward(self, x):
+        if self.pre_norm:
+            return x + self.linear2(torch.relu(self.linear1(self.norm(x))))
         return self.norm(x + self.linear2(torch.relu(self.linear1(x)))).to(self.dtype)
 
 
 # geopurify_tpu/models/layers.py:195
 class TransformerEncoderLayer(nn.Module):
-    """Post-norm DETR encoder layer: q=k=src+pos, v=src, then FFN."""
+    """DETR encoder layer, post-norm (or ``pre_norm``): q=k=src+pos, v=src,
+    then FFN."""
 
-    def __init__(self, dim: int, num_heads: int, hidden_dim: int, dtype=torch.float32):
+    def __init__(self, dim: int, num_heads: int, hidden_dim: int, dtype=torch.float32,
+                 pre_norm: bool = False):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.pre_norm = dtype, pre_norm
         self.self_attn = MultiHeadAttention(dim, num_heads, dtype)
         self.norm1 = LayerNorm(dim)
         self.norm2 = LayerNorm(dim)
         self.linear1 = Dense(dim, hidden_dim, dtype)
         self.linear2 = Dense(hidden_dim, dim, dtype)
 
+    def _ffn(self, x):
+        return self.linear2(torch.relu(self.linear1(x)))
+
     def forward(self, src, pos):
+        if self.pre_norm:
+            x = self.norm1(src)
+            q = x + pos
+            src = src + self.self_attn(q, q, x)
+            return src + self._ffn(self.norm2(src))
         q = src + pos
         src = self.norm1(src + self.self_attn(q, q, src)).to(self.dtype)
-        ffn = self.linear2(torch.relu(self.linear1(src)))
-        return self.norm2(src + ffn).to(self.dtype)
+        return self.norm2(src + self._ffn(src)).to(self.dtype)
 
 
 # geopurify_tpu/models/layers.py:227
 class ConvGN(nn.Module):
-    """Conv2D (NHWC, no bias) + GroupNorm(32) + optional ReLU."""
+    """Conv2D (NHWC, bias only if asked) + GroupNorm(32) + optional ReLU."""
 
     def __init__(self, in_ch: int, features: int, kernel: int = 3,
-                 relu: bool = False, dtype=torch.float32):
+                 relu: bool = False, bias: bool = False, dtype=torch.float32):
         super().__init__()
         self.relu, self.dtype = relu, dtype
-        self.conv = Conv(in_ch, features, kernel, bias=False, dtype=dtype)
+        self.conv = Conv(in_ch, features, kernel, bias=bias, dtype=dtype)
         self.norm = GroupNorm(math.gcd(32, features), features)
 
     def forward(self, x):
@@ -276,6 +298,57 @@ def resize_nearest(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     ri = torch.arange(oh, device=x.device) * h // oh
     ci = torch.arange(ow, device=x.device) * w // ow
     return x[:, ri][:, :, ci]
+
+
+@functools.lru_cache(maxsize=64)
+def _linear_resize_weights(in_size: int, out_size: int) -> np.ndarray:
+    """[out, in] weights of ``jax.image.resize(method='linear')`` along one
+    axis (its compute_weight_mat, in f32): half-pixel centres, a triangle
+    kernel widened by in/out on downscale (antialiasing), each row
+    normalized."""
+    inv_scale = np.float32(1.0 / (out_size / in_size))
+    kernel_scale = max(inv_scale, np.float32(1.0))
+    sample_f = ((np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * inv_scale
+                - np.float32(0.5))
+    x = np.abs(sample_f[None, :] - np.arange(in_size, dtype=np.float32)[:, None]) / kernel_scale
+    w = np.maximum(np.float32(0), np.float32(1) - np.abs(x))
+    total = w.sum(0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, 1), 0)
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return np.ascontiguousarray(np.where(inside[None, :], w, 0).T.astype(np.float32))
+
+
+# geopurify_tpu/models/layers.py:266
+def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """NHWC ``jax.image.resize(method='bilinear')`` (antialiased on
+    downscale), as two f32 matmuls; returned in x's dtype."""
+    _, h, w, _ = x.shape
+    y = x.to(torch.float32)
+    if out_hw[0] != h:
+        Wh = torch.from_numpy(_linear_resize_weights(h, out_hw[0])).to(x.device)
+        y = torch.einsum("Hh,bhwc->bHwc", Wh, y)
+    if out_hw[1] != w:
+        Ww = torch.from_numpy(_linear_resize_weights(w, out_hw[1])).to(x.device)
+        y = torch.einsum("Ww,bhwc->bhWc", Ww, y)
+    return y.to(x.dtype)
+
+
+class ConvTranspose(nn.Module):
+    """flax nn.ConvTranspose with kernel == stride (no overlap, 'SAME'), on
+    NHWC tensors; the weight in torch's ConvTranspose2d layout [in, out, k,
+    k] (``utils.from_jax`` flips the Flax kernel into it)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, dtype=torch.float32):
+        super().__init__()
+        self.dtype, self.kernel = dtype, kernel
+        self.weight = nn.Parameter(torch.zeros(in_ch, out_ch, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(out_ch))
+
+    def forward(self, x):                       # [B, H, W, C]
+        y = F.conv_transpose2d(x.to(self.dtype).permute(0, 3, 1, 2),
+                               self.weight.to(self.dtype), None, self.kernel)
+        return y.permute(0, 2, 3, 1) + self.bias.to(self.dtype)
 
 
 def _torch_cubic(x: np.ndarray, a: float = -0.5) -> np.ndarray:

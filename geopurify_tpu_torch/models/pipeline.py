@@ -79,7 +79,10 @@ class GeoPurifyPipeline:
         self.cfg = cfg
         self.lift_backend_fn = lift_backend_fn
         self.device = resolve_device(device)
-        self.xdecoder = XDecoderSegModel(cfg.xdecoder).eval()
+        # a captioning checkpoint's caption slots (predictor.pos_embed_caping)
+        cap = teacher_state.get("predictor.pos_embed_caping") if teacher_state else None
+        self.xdecoder = XDecoderSegModel(cfg.xdecoder, caption_len=0 if cap is None
+                                         else cap.shape[0]).eval()
         if teacher_state is not None:
             self.xdecoder.load_state_dict(teacher_state)
         s = cfg.student

@@ -27,7 +27,7 @@ class TransformerEncoderPixelDecoder(nn.Module):
     def __init__(self, in_channels: Sequence[int], conv_dim: int = 512,
                  mask_dim: int = 512, num_enc_layers: int = 6, num_heads: int = 8,
                  dim_feedforward: int = 2048, num_scales: int = 3,
-                 dtype=torch.float32):
+                 pre_norm: bool = False, dtype=torch.float32):
         """``in_channels``: channels of res2..res5."""
         super().__init__()
         self.conv_dim, self.num_scales, self.dtype = conv_dim, num_scales, dtype
@@ -35,7 +35,7 @@ class TransformerEncoderPixelDecoder(nn.Module):
         self.input_proj = Conv(in_channels[3], conv_dim, 1, dtype=dtype)
         for i in range(num_enc_layers):
             self.add_module(f"encoder_layer{i}", TransformerEncoderLayer(
-                conv_dim, num_heads, dim_feedforward, dtype=dtype))
+                conv_dim, num_heads, dim_feedforward, dtype=dtype, pre_norm=pre_norm))
         self.layer_4 = ConvGN(conv_dim, conv_dim, relu=True, dtype=dtype)
         for level in (2, 1, 0):
             self.add_module(f"adapter_{level + 1}", ConvGN(

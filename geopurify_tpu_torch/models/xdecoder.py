@@ -6,7 +6,12 @@ cross-attention -> structured self-attention -> FFN, and per-round
 prediction heads. Only the default inference order (``return_aux=False``,
 xdecoder.py:138-149,176-178) is ported: the mask features are resized to
 the three memory sizes once, and each round's attention mask is the mask
-einsum at the target size, thresholded at sigmoid < 0.5.
+einsum at the target size, thresholded at sigmoid < 0.5. With
+``caption_tokens`` (the captioning task) the caption slots join the
+queries through the structured mask's causal block. The backbone is
+FocalNet (``focal`` or ``focal_dw``), DaViT or ViT, and the pixel decoder
+the transformer-encoder FPN or the deformable one, as ``XDecoderConfig``
+says.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import torch
 from torch import nn
 
 from geopurify_tpu_torch.config import XDecoderConfig
+from geopurify_tpu_torch.models.davit import DaViT
 from geopurify_tpu_torch.models.focalnet import FocalNet
 from geopurify_tpu_torch.models.layers import (
     CrossAttentionLayer,
@@ -29,14 +35,20 @@ from geopurify_tpu_torch.models.layers import (
     resize_bicubic_antialias,
 )
 from geopurify_tpu_torch.models.pixel_decoder import TransformerEncoderPixelDecoder
+from geopurify_tpu_torch.models.pixel_decoder_deform import MSDeformAttnPixelDecoder
+from geopurify_tpu_torch.models.vit_backbone import ViTBackbone
 
 
 # geopurify_tpu/models/xdecoder.py:45
-def _structured_self_attn_mask(num_queries: int) -> np.ndarray:
-    """[Q, Q] bool, True = blocked: object queries and the class token (the
-    last query) do not see each other."""
-    Q = num_queries
-    m = np.zeros((Q, Q), bool)
+def _structured_self_attn_mask(num_queries: int, contxt_len: int = 0) -> np.ndarray:
+    """[Q+T, Q+T] bool, True = blocked: object queries and the class token
+    (the last query) do not see each other; with ``contxt_len`` caption
+    tokens appended, the queries do not see the captions, and the captions
+    see each other causally and every query."""
+    Q, T = num_queries, contxt_len
+    m = np.zeros((Q + T, Q + T), bool)
+    m[:Q, Q:] = True
+    m[Q:, Q:] = np.triu(np.ones((T, T), bool), 1)
     m[: Q - 1, Q - 1: Q] = True
     m[Q - 1: Q, : Q - 1] = True
     return m
@@ -44,16 +56,18 @@ def _structured_self_attn_mask(num_queries: int) -> np.ndarray:
 
 # geopurify_tpu/models/xdecoder.py:59
 class XDecoderHead(nn.Module):
-    """Query decoder over pixel-decoder outputs (seg task, inference order)."""
+    """Query decoder over pixel-decoder outputs (seg task, inference order).
+    ``caption_len`` > 0 adds the caption slots (``caping_embed``,
+    ``pos_embed_caping``) that the captioning task runs."""
 
     def __init__(self, hidden_dim: int = 512, dim_proj: int = 512,
                  num_queries: int = 201, nheads: int = 8, dim_feedforward: int = 2048,
                  dec_layers: int = 9, mask_dim: int = 512, num_levels: int = 3,
-                 dtype=torch.float32):
+                 pre_norm: bool = False, caption_len: int = 0, dtype=torch.float32):
         super().__init__()
         C = hidden_dim
         self.hidden_dim, self.num_queries, self.dec_layers = C, num_queries, dec_layers
-        self.dtype = dtype
+        self.dim_proj, self.dtype = dim_proj, dtype
         self.level_embed = nn.Parameter(torch.zeros(num_levels, C))
         self.query_feat = nn.Parameter(torch.zeros(num_queries, C))
         self.query_embed = nn.Parameter(torch.zeros(num_queries, C))
@@ -61,9 +75,22 @@ class XDecoderHead(nn.Module):
         self.mask_embed = MLPHead(C, C, mask_dim, 3, dtype=dtype)
         self.decoder_norm = LayerNorm(C)
         for i in range(dec_layers):
-            self.add_module(f"cross_attn{i}", CrossAttentionLayer(C, nheads, dtype))
-            self.add_module(f"self_attn{i}", SelfAttentionLayer(C, nheads, dtype))
-            self.add_module(f"ffn{i}", FFNLayer(C, dim_feedforward, dtype))
+            self.add_module(f"cross_attn{i}", CrossAttentionLayer(C, nheads, dtype, pre_norm))
+            self.add_module(f"self_attn{i}", SelfAttentionLayer(C, nheads, dtype, pre_norm))
+            self.add_module(f"ffn{i}", FFNLayer(C, dim_feedforward, dtype, pre_norm))
+        self.caping_embed = self.pos_embed_caping = None
+        if caption_len:
+            self.add_caption_slots(caption_len)
+
+    def add_caption_slots(self, caption_len: int) -> None:
+        """Zero caption slots for ``caption_len`` tokens, the stand-ins the
+        JAX captioning entry gives a model built without them
+        (run/infer2d.py:303-316)."""
+        dev = self.class_embed.device
+        self.caping_embed = nn.Parameter(torch.zeros(self.hidden_dim, self.dim_proj,
+                                                     device=dev))
+        self.pos_embed_caping = nn.Parameter(torch.zeros(caption_len, self.hidden_dim,
+                                                         device=dev))
 
     def forward(
         self,
@@ -71,17 +98,22 @@ class XDecoderHead(nn.Module):
         mask_features: torch.Tensor,       # [B, H4, W4, mask_dim]
         text_embeddings: torch.Tensor,     # [n_cls(+1), dim_proj]
         logit_scale,                       # [] (already exp'd)
+        caption_tokens: Optional[torch.Tensor] = None,   # [B, T, C]
         attn_mask_override: Optional[List[torch.Tensor]] = None,
         return_attn: bool = False,
     ) -> Dict[str, torch.Tensor]:
-        """``attn_mask_override[i]`` forces round i's cross-attention mask
-        ([B, Q, HW_level] bool, True = block) and ``return_attn`` returns the
-        masks the rounds computed under ``attn_masks`` (and round 0's
-        pre-threshold logits under ``attn_logits0``) — instrumentation for
-        holding the port against JAX on the same binarized masks."""
+        """``caption_tokens`` (the language tower's token embeddings) add
+        ``pred_captionings`` [B, T, dim_proj] and ``pred_captions`` [B, Q,
+        dim_proj] to the outputs. ``attn_mask_override[i]`` forces round i's
+        cross-attention mask ([B, Q(+T), HW_level] bool, True = block) and
+        ``return_attn`` returns the masks the rounds computed under
+        ``attn_masks`` (and round 0's pre-threshold logits under
+        ``attn_logits0``) — instrumentation for holding the port against JAX
+        on the same binarized masks."""
         dt = self.dtype
         B = mask_features.shape[0]
         Q, C = self.num_queries, self.hidden_dim
+        T = caption_tokens.shape[1] if caption_tokens is not None else 0
         dev = mask_features.device
 
         srcs, poss, sizes = [], [], []
@@ -92,13 +124,15 @@ class XDecoderHead(nn.Module):
             poss.append(pe[None].expand(b, h, w, C).reshape(b, h * w, C))
             srcs.append(x.reshape(b, h * w, c) + self.level_embed[i].to(dt)[None, None])
 
-        self_mask = torch.from_numpy(_structured_self_attn_mask(Q)).to(dev)[None, None]
+        self_mask = torch.from_numpy(_structured_self_attn_mask(Q, T)).to(dev)[None, None]
         mf = mask_features.to(torch.float32)
         text_t = text_embeddings.to(torch.float32)
         mf_small = [resize_bicubic_antialias(mf, s) for s in sizes]
 
         def prediction_heads(output, level: int, want_full: bool):
-            dec = self.decoder_norm(output)                        # f32 [B, Q, C]
+            dec_all = self.decoder_norm(output)                    # f32 [B, Q+T, C]
+            capt = dec_all[:, Q:] @ self.caping_embed if T else None
+            dec = dec_all[:, :Q]
             ndec = dec / (torch.linalg.norm(dec, dim=-1, keepdim=True) + 1e-7)
             obj_tok, cls_tok = ndec[:, : Q - 1], ndec[:, Q - 1: Q]
             sim = torch.softmax(torch.einsum("bic,bqc->biq", cls_tok, obj_tok),
@@ -114,12 +148,21 @@ class XDecoderHead(nn.Module):
             logits = torch.einsum("bqc,bhwc->bqhw", m_emb, mf_small[level])
             am = torch.sigmoid(logits).reshape(B, Q, -1) < 0.5        # True = block
             am = am & ~am.all(dim=-1, keepdim=True)
-            return outputs_class, outputs_mask, class_embed, am, logits
+            if T:
+                # caption rows attend the full memory (xdecoder.py:265-267)
+                am = torch.cat([am, am.new_zeros((B, T, am.shape[-1]))], 1)
+            return outputs_class, outputs_mask, class_embed, capt, am, logits
 
         output = self.query_feat[None].expand(B, Q, C).to(dt)
         qpe = self.query_embed[None].expand(B, Q, C).to(dt)
+        if T:
+            # the queries see detached caption states; the caption QPE
+            # carries the token embedding + pos_embed_caping
+            cap = caption_tokens.to(dt)
+            output = torch.cat([output, cap.detach()], 1)
+            qpe = torch.cat([qpe, cap + self.pos_embed_caping[None].to(dt)], 1)
         num_levels = len(multi_scale)
-        outputs_class, outputs_mask, class_embed, am, logits0 = prediction_heads(
+        outputs_class, outputs_mask, class_embed, capt, am, logits0 = prediction_heads(
             output, 0, want_full=self.dec_layers == 0)
         attn = [am]
         for i in range(self.dec_layers):
@@ -132,7 +175,7 @@ class XDecoderHead(nn.Module):
             output = getattr(self, f"self_attn{i}")(output, query_pos=qpe,
                                                     tgt_mask=self_mask)
             output = getattr(self, f"ffn{i}")(output)
-            outputs_class, outputs_mask, class_embed, am, _ = prediction_heads(
+            outputs_class, outputs_mask, class_embed, capt, am, _ = prediction_heads(
                 output, (i + 1) % num_levels, want_full=i == self.dec_layers - 1)
             attn.append(am)
         out = {
@@ -142,6 +185,9 @@ class XDecoderHead(nn.Module):
             "cls_logits": outputs_class[:, Q - 1],
             "cls_embed": class_embed[:, Q - 1],
         }
+        if T:
+            out["pred_captionings"] = capt                 # [B, T, dim_proj]
+            out["pred_captions"] = class_embed             # the class row included
         if return_attn:
             out["attn_masks"] = attn
             out["attn_logits0"] = logits0          # round 0, pre-threshold
@@ -165,62 +211,89 @@ def _normalize_and_pad(cfg: XDecoderConfig, images: torch.Tensor) -> torch.Tenso
 
 
 # geopurify_tpu/models/xdecoder.py:280
-def _make_backbone(cfg: XDecoderConfig) -> FocalNet:
-    if cfg.backbone_type != "focalnet" or cfg.backbone.variant != "focal":
-        raise NotImplementedError(
-            f"backbone {cfg.backbone_type}/{cfg.backbone.variant}: only the "
-            "focalnet 'focal' variant is ported")
-    bb = cfg.backbone
+def _make_backbone(cfg: XDecoderConfig) -> nn.Module:
+    """FocalNet as ``cfg.backbone`` says, or DaViT / ViT at the JAX
+    package's defaults."""
     dtype = model_dtype(cfg)
+    if cfg.backbone_type == "davit":
+        return DaViT(dtype=dtype)
+    if cfg.backbone_type == "vit":
+        return ViTBackbone(dtype=dtype)
+    bb = cfg.backbone
     return FocalNet(
         embed_dim=bb.embed_dim, depths=tuple(bb.depths),
         focal_levels=tuple(bb.focal_levels), focal_windows=tuple(bb.focal_windows),
-        mlp_ratio=bb.mlp_ratio, fast_gelu=bb.fast_gelu and dtype == torch.bfloat16,
+        mlp_ratio=bb.mlp_ratio, use_conv_embed=bb.use_conv_embed,
+        use_postln=bb.use_postln, use_postln_in_modulation=bb.use_postln_in_modulation,
+        scaling_modulator=bb.scaling_modulator, use_layerscale=bb.use_layerscale,
+        use_dw=bb.variant == "focal_dw", use_pre_norms=tuple(bb.use_pre_norms),
+        fast_gelu=bb.fast_gelu and dtype == torch.bfloat16, patch_size=bb.patch_size,
         out_indices=tuple(bb.out_indices), dtype=dtype,
     )
 
 
-# geopurify_tpu/models/xdecoder.py:393
-class XDecoderSegModel(nn.Module):
-    """Backbone + pixel decoder + query decoder (forward_seg_all)."""
+def _backbone_channels(cfg: XDecoderConfig) -> List[int]:
+    """Channels of res2..res5 of ``_make_backbone(cfg)``."""
+    if cfg.backbone_type == "davit":
+        return [96, 192, 384, 768]
+    if cfg.backbone_type == "vit":
+        return [128, 256, 512, 1024]
+    return [cfg.backbone.embed_dim * 2 ** i for i in range(len(cfg.backbone.depths))]
 
-    def __init__(self, cfg: XDecoderConfig):
-        super().__init__()
-        if cfg.pixel_decoder != "fpn":
-            raise NotImplementedError("only the 'fpn' pixel decoder is ported")
-        bb = cfg.backbone
-        if not (bb.use_conv_embed and bb.use_postln and bb.use_layerscale
-                and bb.scaling_modulator and not bb.use_postln_in_modulation
-                and not cfg.pre_norm):
-            raise NotImplementedError("only the xdecoder_focall settings are ported "
-                                      "(conv embed, post-norm, layerscale)")
-        self.cfg = cfg
-        dtype = model_dtype(cfg)
-        chans = [bb.embed_dim * 2 ** i for i in range(len(bb.depths))]
-        self.backbone = _make_backbone(cfg)
-        self.pixel_decoder = TransformerEncoderPixelDecoder(
+
+# geopurify_tpu/models/xdecoder.py:312
+def _make_pixel_decoder(cfg: XDecoderConfig) -> nn.Module:
+    dtype = model_dtype(cfg)
+    chans = _backbone_channels(cfg)
+    if cfg.pixel_decoder == "deform":
+        return MSDeformAttnPixelDecoder(
             chans, conv_dim=cfg.conv_dim, mask_dim=cfg.mask_dim,
             num_enc_layers=cfg.enc_layers, num_heads=cfg.nheads,
             dim_feedforward=cfg.dim_feedforward, dtype=dtype)
-        self.predictor = XDecoderHead(
-            hidden_dim=cfg.hidden_dim, dim_proj=cfg.hidden_dim,
-            num_queries=cfg.num_queries, nheads=cfg.nheads,
-            dim_feedforward=cfg.dim_feedforward, dec_layers=cfg.dec_layers,
-            mask_dim=cfg.mask_dim, dtype=dtype)
+    return TransformerEncoderPixelDecoder(
+        chans, conv_dim=cfg.conv_dim, mask_dim=cfg.mask_dim,
+        num_enc_layers=cfg.enc_layers, num_heads=cfg.nheads,
+        dim_feedforward=cfg.dim_feedforward, pre_norm=cfg.pre_norm, dtype=dtype)
 
-    def forward(self, images, text_embeddings, logit_scale) -> Dict[str, torch.Tensor]:
+
+# geopurify_tpu/models/xdecoder.py:340
+def _make_head(cfg: XDecoderConfig, caption_len: int = 0) -> XDecoderHead:
+    return XDecoderHead(
+        hidden_dim=cfg.hidden_dim, dim_proj=cfg.hidden_dim,
+        num_queries=cfg.num_queries, nheads=cfg.nheads,
+        dim_feedforward=cfg.dim_feedforward, dec_layers=cfg.dec_layers,
+        mask_dim=cfg.mask_dim, pre_norm=cfg.pre_norm, caption_len=caption_len,
+        dtype=model_dtype(cfg))
+
+
+# geopurify_tpu/models/xdecoder.py:393
+class XDecoderSegModel(nn.Module):
+    """Backbone + pixel decoder + query decoder (forward_seg_all).
+    ``caption_len`` > 0 gives the head its caption slots."""
+
+    def __init__(self, cfg: XDecoderConfig, caption_len: int = 0):
+        super().__init__()
+        self.cfg = cfg
+        self.backbone = _make_backbone(cfg)
+        self.pixel_decoder = _make_pixel_decoder(cfg)
+        self.predictor = _make_head(cfg, caption_len)
+
+    def forward(self, images, text_embeddings, logit_scale,
+                caption_tokens: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         mask_features, multi_scale = encode_pixel_features(self, images)
-        out = apply_head(self, multi_scale, mask_features, text_embeddings, logit_scale)
-        x_hw = -(-images.shape[1] // self.cfg.size_divisibility) * self.cfg.size_divisibility
-        y_hw = -(-images.shape[2] // self.cfg.size_divisibility) * self.cfg.size_divisibility
-        out["padded_hw"] = torch.tensor([x_hw, y_hw])
+        out = apply_head(self, multi_scale, mask_features, text_embeddings, logit_scale,
+                         caption_tokens=caption_tokens)
+        div = self.cfg.size_divisibility
+        out["padded_hw"] = torch.tensor([-(-images.shape[1] // div) * div,
+                                         -(-images.shape[2] // div) * div])
         return out
 
 
 # geopurify_tpu/models/xdecoder.py:355
 def encode_pixel_features(model: XDecoderSegModel, images: torch.Tensor
                           ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """Normalize/pad + backbone + pixel decoder: (mask_features, multi_scale)."""
+    """Normalize/pad + backbone + pixel decoder: (mask_features,
+    multi_scale). Loops that re-run only the head (captioning) encode once."""
     x = _normalize_and_pad(model.cfg, images)
     feats = model.backbone(x.to(model_dtype(model.cfg)))
     mask_features, _, multi_scale = model.pixel_decoder(feats)
@@ -230,7 +303,8 @@ def encode_pixel_features(model: XDecoderSegModel, images: torch.Tensor
 # geopurify_tpu/models/xdecoder.py:375
 def apply_head(model: XDecoderSegModel, multi_scale: Sequence[torch.Tensor],
                mask_features: torch.Tensor, text_embeddings, logit_scale,
-               **kw) -> Dict[str, torch.Tensor]:
-    """The query-decoder half of ``XDecoderSegModel``."""
+               caption_tokens: Optional[torch.Tensor] = None, **kw) -> Dict[str, torch.Tensor]:
+    """The query-decoder half of ``XDecoderSegModel`` (``kw``: the head's
+    instrumentation, ``attn_mask_override`` / ``return_attn``)."""
     return model.predictor(list(multi_scale), mask_features, text_embeddings,
-                           logit_scale, **kw)
+                           logit_scale, caption_tokens=caption_tokens, **kw)

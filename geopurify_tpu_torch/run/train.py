@@ -165,7 +165,8 @@ def _zero_(module: torch.nn.Module) -> None:
 
 # geopurify_tpu/run/train.py:119
 def build_pipeline(cfg: GeoPurifyConfig, generator: torch.Generator, device="cuda",
-                   require_teachers: bool = False, with_sonata: bool = True):
+                   require_teachers: bool = False, with_sonata: bool = True,
+                   return_lang: bool = False):
     """The pipeline with frozen teachers and class-name text embeddings.
 
     With ``xdecoder.ckpt`` the X-Decoder and the language tower load from
@@ -178,7 +179,10 @@ def build_pipeline(cfg: GeoPurifyConfig, generator: torch.Generator, device="cud
     ``require_teachers`` (the real-data entry points) logs the JAX
     package's warnings. ``with_sonata=False`` leaves the Sonata teacher out
     (Stage 2 never runs it). With ``xdecoder.lift_backend`` lseg / ape the
-    backend's callable comes from ``models/lift_backends.py``."""
+    backend's callable comes from ``models/lift_backends.py``.
+    ``return_lang`` returns ``(pipeline, (tokenizer, language tower))``:
+    the text-conditioned 2D tasks (``run/infer2d.py``) reuse the tower
+    built (or converted) here."""
     dev = resolve_device(device)
     t, x = cfg.text, cfg.xdecoder
     tk = build_tokenizer(t.tokenizer_vocab, t.context_length, t.vocab_size)
@@ -240,6 +244,8 @@ def build_pipeline(cfg: GeoPurifyConfig, generator: torch.Generator, device="cud
                                  lift_backend_fn=lift_backend_fn)
     if conv is None:
         _zero_(pipeline.xdecoder)
+    if return_lang:
+        return pipeline, (tk, lang)
     return pipeline
 
 

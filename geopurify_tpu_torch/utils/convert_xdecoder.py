@@ -1,29 +1,27 @@
 """Released X-Decoder checkpoint (torch) -> the port's state dicts.
 
-Port of geopurify_tpu/utils/convert_xdecoder.py, the part the 3D path
-reads: the FocalNet (``focal`` variant) backbone, the transformer-encoder
-FPN pixel decoder, the X-Decoder predictor and the CLIP-style language
-tower of ``xdecoder_focall_last.pt``. The reference keys map first onto
-the Flax-layout tree of the JAX package (numpy arrays; a FocalNet stage's
-blocks are numbered children here, where the JAX converter stacks them for
-its scanned stage), then through ``utils.from_jax._state_dict`` onto the
-port's parameter names and layouts.
+Port of geopurify_tpu/utils/convert_xdecoder.py. The reference keys map
+first onto the Flax-layout tree of the JAX package (numpy arrays; a
+FocalNet stage's blocks are numbered children here, where the JAX
+converter stacks them for its scanned stage), then through
+``utils.from_jax._state_dict`` onto the port's parameter names and
+layouts.
 
-The 2D family's checkpoints (the ``focal_dw`` FocalNet, DaViT, ViT, the
-deformable pixel decoder, SEEM) raise ``NotImplementedError``: their
-modules are not ported (ROADMAP Queue 1, the 2D family). The predictor's
-caption slots (``caping_embed``, ``pos_embed_caping``), which a
-captioning-trained checkpoint carries, are read by the captioning task
-only; the 3D path has no module for them, so they are left out with a
-warning.
+``convert_xdecoder_checkpoint`` converts, as the JAX one does, a FocalNet
+(``focal`` or ``focal_dw``) + transformer-encoder FPN checkpoint with its
+predictor (caption slots kept when present) and language tower. DaViT, ViT
+and deformable-decoder checkpoints go through the standalone converters
+(``convert_davit``, ``convert_vit``, ``convert_deform_pixel_decoder``),
+and ``convert_xdecoder_checkpoint`` names them in its error; SEEM keys
+raise ``NotImplementedError`` (not ported: ROADMAP Queue 1).
 
-``synthesize_torch_state_dict`` is the inverse: the port's X-Decoder and
-language tower written out under the reference's keys and layouts.
+``synthesize_torch_state_dict`` is the inverse: the port's X-Decoder (any
+backbone and pixel decoder, caption slots included) and language tower
+written out under the reference's keys and layouts.
 """
 
 from __future__ import annotations
 
-import logging
 import re
 from typing import Any, Dict, Tuple
 
@@ -32,19 +30,18 @@ import torch
 
 from geopurify_tpu_torch.utils.from_jax import _state_dict
 
-log = logging.getLogger("geopurify.convert_xdecoder")
-
 Array = np.ndarray
 SD = Dict[str, Array]
 
-_TWO_D_FAMILY = (
-    (re.compile(r"(^|\.)backbone\.layers\.\d+\.blocks\.\d+\.dw1\."), "the focal_dw FocalNet"),
-    (re.compile(r"(^|\.)backbone\.convs\.\d+\."), "the DaViT backbone"),
-    (re.compile(r"(^|\.)backbone\.(pos_embed|blocks\.\d+\.attn\.qkv)"), "the ViT backbone"),
+# SEEM, the one 2D-family decoder the port has no module for
+_SEEM = re.compile(r"predictor\.(mask_sptial_embed|spatial_embed|spatial_featured|pn_indicator)")
+# checkpoints that convert_xdecoder_checkpoint leaves to a standalone converter
+_STANDALONE = (
+    (re.compile(r"(^|\.)backbone\.convs\.\d+\."), "a DaViT backbone", "convert_davit"),
+    (re.compile(r"(^|\.)backbone\.(pos_embed|blocks\.\d+\.attn\.qkv)"), "a ViT backbone",
+     "convert_vit"),
     (re.compile(r"pixel_decoder\.(transformer\.level_embed|input_proj\.\d+\.0\.)"),
-     "the deformable pixel decoder"),
-    (re.compile(r"predictor\.(mask_sptial_embed|spatial_embed|spatial_featured|pn_indicator)"),
-     "the SEEM decoder"),
+     "the deformable pixel decoder", "convert_deform_pixel_decoder"),
 )
 
 
@@ -140,6 +137,10 @@ def convert_focalnet(sd: SD, prefix: str, depths) -> Dict[str, Any]:
             if f"{bp}.gamma_1" in sd:
                 blk["gamma_1"] = _get(sd, f"{bp}.gamma_1")
                 blk["gamma_2"] = _get(sd, f"{bp}.gamma_2")
+            # the focal_dw variant's depthwise residual convs
+            if f"{bp}.dw1.weight" in sd:
+                blk["dw1"] = _conv(sd, f"{bp}.dw1")
+                blk["dw2"] = _conv(sd, f"{bp}.dw2")
             blocks[str(j)] = blk
         p[f"layers{i}_blocks"] = blocks
         if f"{prefix}.layers.{i}.downsample.proj.weight" in sd:
@@ -149,6 +150,116 @@ def convert_focalnet(sd: SD, prefix: str, depths) -> Dict[str, Any]:
             p[f"layers{i}_downsample"] = ds
         if f"{prefix}.norm{i}.weight" in sd:
             p[f"norm{i}"] = _ln(sd, f"{prefix}.norm{i}")
+    return p
+
+
+# geopurify_tpu/utils/convert_xdecoder.py:163
+def convert_davit(sd: SD, prefix: str, depths) -> Dict[str, Any]:
+    """torch DaViT (vision/backbone/davit.py) -> the ``models.davit.DaViT``
+    tree: ``convs.{s}`` -> ``patch_embed{s}`` / ``embed_norm{s}``;
+    ``blocks.{s}.{j}.{spatial,channel}_block`` -> ``stage{s}_block{j}``'s
+    ``s_`` / ``c_`` halves."""
+    p: Dict[str, Any] = {}
+    for s, depth in enumerate(depths):
+        p[f"patch_embed{s}"] = _conv(sd, f"{prefix}.convs.{s}.proj")
+        p[f"embed_norm{s}"] = _ln(sd, f"{prefix}.convs.{s}.norm")
+        for j in range(depth):
+            blk: Dict[str, Any] = {}
+            for tag, ref, attn in (("s", "spatial_block", "window_attn"),
+                                   ("c", "channel_block", "channel_attn")):
+                bp = f"{prefix}.blocks.{s}.{j}.{ref}"
+                blk[f"{tag}_cpe1"] = {"dw": _conv(sd, f"{bp}.conv1.fn.dw")}
+                blk[f"{tag}_norm1"] = _ln(sd, f"{bp}.{attn}.norm")
+                blk[f"{tag}_attn"] = {"qkv": _lin(sd, f"{bp}.{attn}.fn.qkv"),
+                                      "proj": _lin(sd, f"{bp}.{attn}.fn.proj")}
+                blk[f"{tag}_cpe2"] = {"dw": _conv(sd, f"{bp}.conv2.fn.dw")}
+                blk[f"{tag}_norm2"] = _ln(sd, f"{bp}.ffn.norm")
+                blk[f"{tag}_mlp_fc1"] = _lin(sd, f"{bp}.ffn.fn.net.fc1")
+                blk[f"{tag}_mlp_fc2"] = _lin(sd, f"{bp}.ffn.fn.net.fc2")
+            p[f"stage{s}_block{j}"] = blk
+    return p
+
+
+# geopurify_tpu/utils/convert_xdecoder.py:194
+def _convt(sd: SD, prefix: str) -> Dict[str, Array]:
+    """torch ConvTranspose2d [in, out, kh, kw] -> the Flax ConvTranspose
+    kernel [kh, kw, in, out], spatially flipped (torch's is the gradient of
+    a conv, Flax's a correlation over the dilated input)."""
+    w = _get(sd, f"{prefix}.weight").transpose(2, 3, 0, 1)[::-1, ::-1]
+    out = {"kernel": np.ascontiguousarray(w)}
+    if f"{prefix}.bias" in sd:
+        out["bias"] = _get(sd, f"{prefix}.bias")
+    return out
+
+
+# geopurify_tpu/utils/convert_xdecoder.py:209
+def _gn(sd: SD, prefix: str) -> Dict[str, Array]:
+    return _ln(sd, prefix)
+
+
+# the SimpleFPN's Sequential indices (vision/backbone/vit.py:406-445)
+_VIT_NECK = (
+    ("d4_up1", "down_4.0", _convt), ("d4_gn1", "down_4.1", _gn),
+    ("d4_up2", "down_4.3", _convt), ("d4_gn2", "down_4.4", _gn),
+    ("d4_out", "down_4.5", _conv), ("d4_gn3", "down_4.6", _gn),
+    ("d8_up", "down_8.0", _convt), ("d8_gn1", "down_8.1", _gn),
+    ("d8_out", "down_8.2", _conv), ("d8_gn2", "down_8.3", _gn),
+    ("d16_out", "down_16.0", _conv), ("d16_gn", "down_16.1", _gn),
+    ("d32_down", "down_32.0", _conv), ("d32_gn1", "down_32.1", _gn),
+    ("d32_out", "down_32.2", _conv), ("d32_gn2", "down_32.3", _gn),
+)
+
+
+# geopurify_tpu/utils/convert_xdecoder.py:212
+def convert_vit(sd: SD, prefix: str, depth: int) -> Dict[str, Any]:
+    """torch D2ViT + SimpleFPN (vision/backbone/vit.py) -> the
+    ``models.vit_backbone.ViTBackbone`` tree."""
+    p: Dict[str, Any] = {
+        "patch_embed": _conv(sd, f"{prefix}.patch_embed.proj"),
+        "pos_embed": _get(sd, f"{prefix}.pos_embed")[0],       # [1, g, g, C] -> [g, g, C]
+    }
+    for i in range(depth):
+        bp = f"{prefix}.blocks.{i}"
+        attn: Dict[str, Any] = {"qkv": _lin(sd, f"{bp}.attn.qkv"),
+                                "proj": _lin(sd, f"{bp}.attn.proj")}
+        if f"{bp}.attn.rel_pos_h" in sd:
+            attn["rel_pos_h"] = _get(sd, f"{bp}.attn.rel_pos_h")
+            attn["rel_pos_w"] = _get(sd, f"{bp}.attn.rel_pos_w")
+        p[f"block{i}"] = {"norm1": _ln(sd, f"{bp}.norm1"), "norm2": _ln(sd, f"{bp}.norm2"),
+                          "attn": attn, "mlp_fc1": _lin(sd, f"{bp}.mlp.lin1"),
+                          "mlp_fc2": _lin(sd, f"{bp}.mlp.lin2")}
+    p["neck"] = {ours: fn(sd, f"{prefix}.neck.{ref}") for ours, ref, fn in _VIT_NECK}
+    return p
+
+
+# geopurify_tpu/utils/convert_xdecoder.py:250
+def convert_deform_pixel_decoder(sd: SD, prefix: str, enc_layers: int) -> Dict[str, Any]:
+    """torch MSDeformAttnPixelDecoder (transformer_encoder_deform.py) -> the
+    ``models.pixel_decoder_deform.MSDeformAttnPixelDecoder`` tree:
+    ``input_proj.{i}`` is a Conv2d (bias) + GN Sequential, ``adapter_1`` /
+    ``layer_1`` detectron2 norm-convs, the transformer the level embedding
+    and each layer's MSDeformAttn linears."""
+    p: Dict[str, Any] = {
+        "level_embed": _get(sd, f"{prefix}.transformer.level_embed"),
+        "mask_features": _conv(sd, f"{prefix}.mask_features"),
+        "adapter_1": _conv_gn(sd, f"{prefix}.adapter_1"),
+        "layer_1": _conv_gn(sd, f"{prefix}.layer_1"),
+    }
+    i = 0
+    while f"{prefix}.input_proj.{i}.0.weight" in sd:
+        p[f"input_proj{i}"] = {"conv": _conv(sd, f"{prefix}.input_proj.{i}.0"),
+                               "norm": _gn(sd, f"{prefix}.input_proj.{i}.1")}
+        i += 1
+    for j in range(enc_layers):
+        lp = f"{prefix}.transformer.encoder.layers.{j}"
+        p[f"encoder_layer{j}"] = {
+            **{n: _lin(sd, f"{lp}.self_attn.{n}") for n in
+               ("value_proj", "sampling_offsets", "attention_weights", "output_proj")},
+            "norm1": _ln(sd, f"{lp}.norm1"),
+            "linear1": _lin(sd, f"{lp}.linear1"),
+            "linear2": _lin(sd, f"{lp}.linear2"),
+            "norm2": _ln(sd, f"{lp}.norm2"),
+        }
     return p
 
 
@@ -191,11 +302,11 @@ def convert_predictor(sd: SD, prefix: str, dec_layers: int) -> Dict[str, Any]:
         mlp[f"layers{i}"] = _lin(sd, f"{prefix}.mask_embed.layers.{i}")
         i += 1
     p["mask_embed"] = mlp
-    caption = [k for k in (f"{prefix}.caping_embed", f"{prefix}.pos_embed_caping.weight")
-               if k in sd]
-    if caption:
-        log.warning("%s: caption slots of the captioning task, which the 3D path "
-                    "does not run (ROADMAP Queue 1, the 2D family); left out", caption)
+    # the caption slots of a captioning-trained checkpoint
+    if f"{prefix}.caping_embed" in sd:
+        p["caping_embed"] = _get(sd, f"{prefix}.caping_embed")
+    if f"{prefix}.pos_embed_caping.weight" in sd:
+        p["pos_embed_caping"] = _get(sd, f"{prefix}.pos_embed_caping.weight")
     for i in range(dec_layers):
         cp = f"{prefix}.transformer_cross_attention_layers.{i}"
         sp = f"{prefix}.transformer_self_attention_layers.{i}"
@@ -245,14 +356,18 @@ def convert_xdecoder_checkpoint(sd: SD, depths=(2, 2, 18, 2), enc_layers: int = 
     ``sem_seg_head.``, or under ``model.``). Returns ``{"xdecoder": state
     dict of models.xdecoder.XDecoderSegModel, "lang": state dict of
     models.lang.LanguageEncoder, "logit_scale": exp of the checkpoint's}``.
-    A key of a 2D-family module (``_TWO_D_FAMILY``) raises
-    ``NotImplementedError``."""
+    A SEEM key raises ``NotImplementedError``; a DaViT, ViT or deformable
+    decoder key raises ``ValueError`` naming its standalone converter."""
     for key in sd:
-        for pattern, family in _TWO_D_FAMILY:
+        if _SEEM.search(key):
+            raise NotImplementedError(
+                f"{key}: the SEEM decoder belongs to the 2D family's interactive "
+                "path, not ported yet (ROADMAP Queue 1)")
+        for pattern, family, converter in _STANDALONE:
             if pattern.search(key):
-                raise NotImplementedError(
-                    f"{key}: {family} belongs to the 2D family, not ported yet "
-                    "(ROADMAP Queue 1, the 2D family)")
+                raise ValueError(
+                    f"{key}: {family}; convert_xdecoder_checkpoint converts FocalNet + "
+                    f"FPN checkpoints only, as the JAX one does: use {converter}")
     bb = "backbone" if "backbone.patch_embed.proj.weight" in sd else "model.backbone"
     head = ("sem_seg_head" if "sem_seg_head.pixel_decoder.input_proj.weight" in sd
             else "model.sem_seg_head")
@@ -269,21 +384,43 @@ def convert_xdecoder_checkpoint(sd: SD, depths=(2, 2, 18, 2), enc_layers: int = 
     }
 
 
-# port parameter name -> reference name, per module; the q / k / v
-# projections of an attention layer are packed back into ``in_proj``
+# DaViT: stage{s}_block{j}.{s,c}_* -> blocks.{s}.{j}.{spatial,channel}_block.*
+_DAVIT_BLOCKS = tuple(
+    (rf"^stage(\d+)_block(\d+)\.{t}_{ours}", rf"blocks.\1.\2.{block}.{ref}")
+    for t, block, attn in (("s", "spatial_block", "window_attn"),
+                           ("c", "channel_block", "channel_attn"))
+    for ours, ref in ((r"cpe(\d)\.dw\.", r"conv\3.fn.dw."), (r"norm1\.", f"{attn}.norm."),
+                      (r"attn\.", f"{attn}.fn."), (r"norm2\.", "ffn.norm."),
+                      (r"mlp_fc(\d)\.", r"ffn.fn.net.fc\3.")))
+
+# port parameter name -> reference name, per module (FocalNet, DaViT and ViT
+# backbones; FPN and deformable pixel decoders); the q / k / v projections
+# of an attention layer are packed back into ``in_proj``
 _RENAME = {
     "backbone": (
         (r"^layers(\d+)_blocks\.(\d+)\.modulation\.focal_layers(\d+)\.",
          r"layers.\1.blocks.\2.modulation.focal_layers.\3.0."),
         (r"^layers(\d+)_blocks\.(\d+)\.", r"layers.\1.blocks.\2."),
         (r"^layers(\d+)_downsample\.", r"layers.\1.downsample."),
+        (r"^patch_embed(\d+)\.", r"convs.\1.proj."),
+        (r"^embed_norm(\d+)\.", r"convs.\1.norm."),
+        *_DAVIT_BLOCKS,
+        (r"^patch_embed\.(weight|bias)$", r"patch_embed.proj.\1"),
+        (r"^block(\d+)\.mlp_fc(\d)\.", r"blocks.\1.mlp.lin\2."),
+        (r"^block(\d+)\.", r"blocks.\1."),
+        *((rf"^neck\.{ours}\.", f"neck.{ref}.") for ours, ref, _ in _VIT_NECK),
     ),
     "pixel_decoder": (
+        (r"^level_embed$", r"transformer.level_embed"),
+        (r"^input_proj(\d+)\.conv\.", r"input_proj.\1.0."),
+        (r"^input_proj(\d+)\.norm\.", r"input_proj.\1.1."),
+        (r"^encoder_layer(\d+)\.(value_proj|sampling_offsets|attention_weights|output_proj)\.",
+         r"transformer.encoder.layers.\1.self_attn.\2."),
         (r"^encoder_layer(\d+)\.", r"transformer.encoder.layers.\1."),
         (r"^((adapter|layer)_\d+)\.conv\.", r"\1."),
     ),
     "predictor": (
-        (r"^(query_feat|query_embed|level_embed)$", r"\1.weight"),
+        (r"^(query_feat|query_embed|level_embed|pos_embed_caping)$", r"\1.weight"),
         (r"^mask_embed\.layers(\d+)\.", r"mask_embed.layers.\1."),
         (r"^cross_attn(\d+)\.", r"transformer_cross_attention_layers.\1."),
         (r"^self_attn(\d+)\.", r"transformer_self_attention_layers.\1."),
@@ -323,11 +460,12 @@ def _emit(out: SD, sd: Dict[str, np.ndarray], rules, prefix: str) -> None:
 # geopurify_tpu/utils/convert_xdecoder.py:433
 def synthesize_torch_state_dict(xdecoder, lang) -> SD:
     """The reference-layout state dict (``backbone.`` / ``sem_seg_head.``
-    keys, torch layouts) of the port's ``XDecoderSegModel`` and
-    ``LanguageEncoder`` (modules or their state dicts), such that
-    ``convert_xdecoder_checkpoint`` gives their state dicts back unchanged.
-    The JAX version fills the same keys with random values from Flax shape
-    trees."""
+    keys, torch layouts) of the port's ``XDecoderSegModel`` (any backbone
+    and pixel decoder, caption slots included) and ``LanguageEncoder``
+    (modules or their state dicts), such that ``convert_xdecoder_checkpoint``
+    (FocalNet + FPN) or the standalone converters give their state dicts
+    back unchanged. The JAX version fills the FocalNet + FPN keys with
+    random values from Flax shape trees."""
     xsd = _numpy_state(xdecoder)
     out: SD = {}
     for module, prefix in (("backbone", "backbone."),
@@ -335,5 +473,7 @@ def synthesize_torch_state_dict(xdecoder, lang) -> SD:
                            ("predictor", "sem_seg_head.predictor.")):
         part = {k[len(module) + 1:]: v for k, v in xsd.items() if k.startswith(module + ".")}
         _emit(out, part, _RENAME[module], prefix)
+    if "backbone.pos_embed" in out:                 # ViT: [g, g, C] -> [1, g, g, C]
+        out["backbone.pos_embed"] = out["backbone.pos_embed"][None]
     _emit(out, _numpy_state(lang), _RENAME["lang"], "sem_seg_head.predictor.lang_encoder.")
     return out

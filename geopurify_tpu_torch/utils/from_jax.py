@@ -13,13 +13,19 @@ for the port's modules, whose parameter names mirror the Flax names:
   leading depth axis under ``layers{i}_blocks/block`` / ``stage{s}_blocks/
   block`` (geopurify_tpu/models/focalnet.py:286-305, sonata.py:274-284):
   they unstack to ``..._blocks.{d}``;
+- the ViT neck's ConvTranspose ``kernel`` [k, k, in, out] (a correlation
+  over the stride-dilated input) -> torch's ConvTranspose2d ``weight`` [in,
+  out, k, k], spatially flipped;
 - raw parameters (Sonata's ``cpe_kernel`` / ``stem_kernel_w``, the text
   tower's ``positional_embedding``, ``lang_proj``, ``logit_scale``, an
-  Embed's ``embedding``) keep their name and layout.
+  Embed's ``embedding``; the X-Decoder's caption slots, the ViT's
+  ``pos_embed`` / ``rel_pos_*`` tables, the deformable decoder's
+  ``level_embed``) keep their name and layout.
 """
 
 from __future__ import annotations
 
+import re
 from collections.abc import Mapping
 from typing import Dict, Iterator, Tuple
 
@@ -35,8 +41,14 @@ def _leaves(tree, prefix=()) -> Iterator[Tuple[tuple, np.ndarray]]:
             yield prefix + (str(key),), np.asarray(val)
 
 
-def _leaf(name: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
+# the transposed convs of models/vit_backbone.SimpleFPN
+_CONV_TRANSPOSE = re.compile(r"(^|\.)neck\.d(4_up[12]|8_up)$")
+
+
+def _leaf(name: str, arr: np.ndarray, transpose_conv: bool = False) -> Tuple[str, np.ndarray]:
     if name == "kernel":
+        if transpose_conv:
+            return "weight", arr[::-1, ::-1].transpose(2, 3, 0, 1)
         if arr.ndim == 2:
             return "weight", arr.T
         if arr.ndim == 4:
@@ -58,7 +70,7 @@ def _state_dict(tree) -> Dict[str, torch.Tensor]:
                 key = ".".join(mods[:i] + [str(d)] + mods[i + 1:] + [name])
                 out[key] = torch.from_numpy(np.array(a))
             continue
-        name, arr = _leaf(path[-1], arr)
+        name, arr = _leaf(path[-1], arr, bool(_CONV_TRANSPOSE.search(".".join(mods))))
         out[".".join(mods + [name])] = torch.from_numpy(np.array(arr))
     return out
 
@@ -66,7 +78,8 @@ def _state_dict(tree) -> Dict[str, torch.Tensor]:
 def params_from_jax(variables) -> Dict[str, torch.Tensor]:
     """State dict of a port module whose JAX variables hold parameters only
     (``{"params": ...}`` or the bare params): ``models.xdecoder.
-    XDecoderSegModel``, ``models.sonata.SonataTeacher`` and
+    XDecoderSegModel`` (every backbone and pixel decoder, the caption
+    slots), ``models.sonata.SonataTeacher`` and
     ``models.lang.LanguageEncoder``."""
     return _state_dict(variables["params"] if "params" in variables else variables)
 

@@ -1,9 +1,10 @@
 """Label-coloured PLY dumps of predictions (host-side numpy).
 
-Port of the part of geopurify_tpu/utils/visualization.py that
-``run/validate.py --save-preds`` uses: the class palette (ScanNet-20 colours,
-then seeded random ones) and ``save_semantic_ply``, which writes the same
-bytes as the JAX package's for the same points and labels.
+Port of the parts of geopurify_tpu/utils/visualization.py that
+``run/validate.py --save-preds`` and ``run/infer2d.py`` use: the class
+palette (ScanNet-20 colours, then seeded random ones), ``save_semantic_ply``,
+which writes the same bytes as the JAX package's for the same points and
+labels, and ``overlay_2d_semantic``.
 """
 
 from __future__ import annotations
@@ -49,3 +50,13 @@ def save_semantic_ply(
     colors[labels < 0] = 0
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     write_ply_points(path, points.astype(np.float32), colors)
+
+
+# geopurify_tpu/utils/visualization.py:220
+def overlay_2d_semantic(image: np.ndarray, labels_2d: np.ndarray, num_classes: int,
+                        alpha: float = 0.5, ignore_label: int = 255) -> np.ndarray:
+    """Blend a semantic map [H, W] over an RGB image [H, W, 3] (0..255)."""
+    pal = class_palette(num_classes).astype(np.float32)
+    color = pal[np.clip(labels_2d, 0, num_classes - 1)]
+    keep = (labels_2d != ignore_label)[..., None]
+    return np.where(keep, (1 - alpha) * image + alpha * color, image).astype(np.uint8)

@@ -3,7 +3,8 @@ CPU. X-Decoder: a reference-layout state dict (the JAX synthesizer's, under
 both key prefixes) converts to bit-equal tensors in both packages; the
 port's inverse writes exactly the reference keys and shapes and round-trips;
 the converted model and language tower run forward like the JAX ones at f32
-rel < 1e-5; 2D-family checkpoints raise. Sonata: the synthetic release
+rel < 1e-5; DaViT / ViT / deformable-decoder and SEEM checkpoints raise,
+caption slots convert as in JAX. Sonata: the synthetic release
 layout (both spconv generations, LayerNorm and folded BatchNorm) converts
 bit-equal, runs forward like JAX at rel < 1e-5, and the layout errors raise
 in both packages."""
@@ -167,20 +168,30 @@ def test_xdecoder_converter_errors(xdec, caplog):
             convert(short, **kw)
     with pytest.raises(tcx.MissingKeys):
         tcx.convert_xdecoder_checkpoint(short, **kw)
-    # the 2D family: the JAX converter maps these, the port has no module
-    for key, family in (("backbone.layers.0.blocks.0.dw1.weight", "focal_dw"),
-                        ("backbone.convs.0.proj.weight", "DaViT"),
-                        ("backbone.pos_embed", "ViT"),
-                        ("sem_seg_head.pixel_decoder.transformer.level_embed", "deformable"),
-                        ("sem_seg_head.predictor.mask_sptial_embed.0", "SEEM")):
-        with pytest.raises(NotImplementedError, match=f"{family}.*2D family"):
+    # a focal_dw block needs both of its depthwise residual convs
+    with pytest.raises(tcx.MissingKeys, match="dw2"):
+        tcx.convert_xdecoder_checkpoint(
+            {**sd, "backbone.layers.0.blocks.0.dw1.weight": np.zeros((8, 1, 3, 3), np.float32)},
+            **kw)
+    # the other backbones and the deformable decoder have converters of their
+    # own (the JAX checkpoint converter reads FocalNet + FPN only); SEEM is
+    # not ported
+    for key, error, match in (
+            ("backbone.convs.0.proj.weight", ValueError, "DaViT.*convert_davit"),
+            ("backbone.pos_embed", ValueError, "ViT.*convert_vit"),
+            ("sem_seg_head.pixel_decoder.transformer.level_embed", ValueError,
+             "deformable.*convert_deform_pixel_decoder"),
+            ("sem_seg_head.predictor.mask_sptial_embed.0", NotImplementedError, "SEEM")):
+        with pytest.raises(error, match=match):
             tcx.convert_xdecoder_checkpoint({**sd, key: np.zeros(1, np.float32)}, **kw)
-    # caption slots belong to the captioning task: left out, with a warning
-    cap = {**sd, "sem_seg_head.predictor.caping_embed": np.zeros((16, 16), np.float32)}
-    with caplog.at_level(logging.WARNING, logger="geopurify.convert_xdecoder"):
+    # caption slots are kept, as JAX keeps them, without a warning
+    cap = {**sd, "sem_seg_head.predictor.caping_embed": np.ones((16, 16), np.float32)}
+    with caplog.at_level(logging.WARNING, logger="geopurify"):
         got = tcx.convert_xdecoder_checkpoint(cap, **kw)
-    assert "caping_embed" in caplog.text
-    assert not any("caping" in k for k in got["xdecoder"])
+    assert "caping_embed" not in caplog.text
+    ref = jcx.convert_xdecoder_checkpoint(cap, **kw)
+    _same_state(got["xdecoder"], params_from_jax(ref["xdecoder"]))
+    assert torch.equal(got["xdecoder"]["predictor.caping_embed"], torch.ones(16, 16))
 
 
 # ---------------------------------------------------------------------------
