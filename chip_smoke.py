@@ -118,7 +118,21 @@ Phases (any failure exits non-zero; each prints its seconds):
    CPU's attention masks, rel < 1e-4), ms_deform_attn with sampling points
    outside the maps, and every infer2d task at the ``tiny`` preset (logits
    within 1e-4, semseg flips only at near-ties, equal tables, caption ids,
-   ranking and mIoU).
+   ranking and mIoU);
+16. the interactive path (SEEM), which launches neither kernel (both
+   counts read 0): (a) ``run.infer_interactive.main`` at ``scannet``'s
+   full width with SEEM's 101 queries (FocalNet-L, the 6-layer FPN
+   encoder, the 9-layer SEEM heads, 512 wide, f32 as the JAX entry) on a
+   synthetic 480x640 photo: the v1 click-refinement loop (3 rounds, 64
+   prompt tokens), the demo head with a reference image's visual prompt,
+   and the NoC protocol over 4 instances of 3 rounds, with each call's
+   seconds, its backbone + pixel decoder and head rounds, the peak memory,
+   finite head outputs and a NoC line in range; (b) the card against the
+   CPU in f32 with TF32 off at narrow widths, the card forced onto the
+   CPU's binary attention masks: each head (v0 with grounding and memory,
+   v1 over two masks with memory, the demo's refimg bundle and all four
+   prompt kinds) and the v1 loop of ``main`` (outputs and pre-threshold
+   logits within 1e-4, flips only at near-ties).
 
 A K1 row at a preset's class count (or feature space's 512) that is
 slower than its library call is flagged (``FLAG:`` lines naming the preset,
@@ -2425,6 +2439,369 @@ def phase_2d(mods):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the interactive path (SEEM)
+# ---------------------------------------------------------------------------
+
+# SEEM's released configs decode 101 queries (scannet's X-Decoder has 201)
+SEEM_QUERIES = "xdecoder.num_queries=101"
+INTERACTIVE_ROUNDS = 3
+INTERACTIVE_BUDGET = 64
+NOC_INSTANCES = 4
+
+
+def sync(device="cuda"):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def instrument_interactive(inter, device="cuda"):
+    """Wraps ``run.infer_interactive``'s ``build_models`` (the models built
+    once a head kind and reused, the head's forward timed and its outputs
+    checked finite) and ``encode_image`` (timed). Returns the timings and a
+    function that restores both."""
+    build, encode = inter.build_models, inter.encode_image
+    built, t = {}, {"build_s": {}, "encode_s": [], "head_s": []}
+
+    def build_once(xc, task, budget, n_cls, dev):
+        key = (task, budget)
+        if key not in built:
+            t0 = time.perf_counter()
+            m = build(xc, task, budget, n_cls, dev)
+            t["build_s"][task] = time.perf_counter() - t0
+            forward = m.head.forward
+
+            def timed(*a, **k):
+                sync(device)
+                t1 = time.perf_counter()
+                r = forward(*a, **k)
+                sync(device)
+                t["head_s"].append(time.perf_counter() - t1)
+                flat = [x for v in r.values() for x in (v if isinstance(v, list) else [v])]
+                assert all(bool(torch.isfinite(x.float()).all()) for x in flat
+                           if x.dtype != torch.bool), "non-finite SEEM head output"
+                return r
+
+            m.head.forward = timed
+            built[key] = m
+        return built[key]
+
+    def encode_timed(*a, **k):
+        sync(device)
+        t0 = time.perf_counter()
+        r = encode(*a, **k)
+        sync(device)
+        t["encode_s"].append(time.perf_counter() - t0)
+        return r
+
+    inter.build_models, inter.encode_image = build_once, encode_timed
+
+    def restore():
+        inter.build_models, inter.encode_image = build, encode
+    return t, restore
+
+
+def phase16_interactive(mods, root: Path, extra=(SEEM_QUERIES,), device="cuda"):
+    """(a) ``run.infer_interactive.main`` at ``scannet``'s full width
+    (FocalNet-L, the 6-layer FPN encoder, the 9-layer SEEM heads with 512
+    hidden and 101 queries, f32) on a synthetic 480x640 photo: the v1
+    loop, the demo head with a reference image, and the NoC protocol, each
+    call's seconds, its backbone + pixel decoder and head rounds, its peak
+    memory. ``extra`` overrides the config (a CPU rehearsal narrows it)."""
+    import contextlib
+    import io
+
+    from PIL import Image
+
+    inter, seem = mods["inter"], mods["seem"]
+    rng = np.random.default_rng(16)
+    photo, ref = root / "photo.png", root / "ref.png"
+    Image.fromarray(synthetic_photo(rng)).save(photo)
+    Image.fromarray(synthetic_photo(rng)).save(ref)
+    base = ["--image", str(photo), "--preset", "scannet", "--budget", str(INTERACTIVE_BUDGET),
+            "--device", device, *extra]
+    runs = {
+        "v1": ["--task", "v1", "--rounds", str(INTERACTIVE_ROUNDS),
+               "--clicks", "240,320;260,360", "--neg-clicks", "40,40"],
+        "demo": ["--task", "demo", "--clicks", "240,320", "--refimg", str(ref),
+                 "--ref-clicks", "200,300;220,340"],
+        "noc": ["--eval-noc", str(NOC_INSTANCES), "--rounds", str(INTERACTIVE_ROUNDS)],
+    }
+    t, restore = instrument_interactive(inter, device)
+    cuda = device == "cuda"
+    rec = Recorder()
+    rec.wrap(seem, "demo_select_mask", "demo", lambda a, r: int(r[0][0]))
+    out = {}
+    try:
+        for name, args in runs.items():
+            n_head, n_enc = len(t["head_s"]), len(t["encode_s"])
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            stdout = io.StringIO()
+            sync(device)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(stdout):
+                res = inter.main([*args, "--out", str(root / f"{name}.png"), *base])
+            sync(device)
+            secs = time.perf_counter() - t0
+            r = dict(s=secs, head_s=t["head_s"][n_head:], encode_s=t["encode_s"][n_enc:],
+                     peak_GiB=torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0)
+            if name == "noc":
+                r["noc"] = json.loads(stdout.getvalue().strip().splitlines()[-1])
+                assert res == 0 and set(r["noc"]) == {"noc@0.5", "noc@0.8", "noc@0.85",
+                                                      "noc@0.9", "miou@iter1"}, r["noc"]
+                assert all(1 <= r["noc"][f"noc@{v}"] <= INTERACTIVE_ROUNDS
+                           for v in (0.5, 0.8, 0.85, 0.9))
+                assert 0 <= r["noc"]["miou@iter1"] <= 1
+                assert len(r["head_s"]) >= NOC_INSTANCES
+            else:
+                assert os.path.getsize(res) > 0, res
+            out[name] = r
+            log(f"  interactive {name}: {secs:.2f} s a call (build "
+                f"{t['build_s'].pop('demo' if name == 'demo' else 'v1', 0.0):.2f} s), "
+                f"backbone + pixel decoder {', '.join(f'{v:.3f}' for v in r['encode_s'])} s, "
+                f"head rounds {', '.join(f'{v:.3f}' for v in r['head_s'])} s, "
+                f"peak {r['peak_GiB']:.2f} GiB"
+                + (f"; {r['noc']}" if name == "noc" else ""))
+    finally:
+        restore()
+        rec.restore()
+    best = rec.out["demo"][0]
+    cfg = mods["cfg"].load_config("scannet", overrides=list(extra))
+    assert 0 <= best < cfg.xdecoder.num_queries, best
+    out["demo"]["winning_query"] = best
+    log(f"  interactive demo: winning object query {best}")
+    return out
+
+
+# the narrow widths of phase 16 (b): the heads at C=64, 4 heads, 3 layers
+SEEM_NARROW = dict(hidden_dim=64, dim_proj=64, num_queries=11, nheads=4,
+                   dim_feedforward=128, dec_layers=3, mask_dim=64, max_spatial_tokens=16)
+
+
+def seed_seem(head, seed: int):
+    """Dense kernels N(0, 1/fan-in), biases N(0, 0.1^2), norm scales
+    1 + N(0, 0.1^2), queries and embeddings N(0, 1), the projections
+    N(0, 1/C), the indicator N(0, 0.5^2): masks of both signs at every
+    round."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in head.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            r = torch.randn(p.shape, generator=g)
+            if leaf == "weight":
+                p.copy_(1 + 0.1 * r if p.dim() == 1 else r / p.shape[1] ** 0.5)
+            elif leaf == "bias":
+                p.copy_(0.1 * r)
+            elif leaf == "class_embed" or leaf.startswith("mask_spatial_embed"):
+                p.copy_(r / p.shape[0] ** 0.5)
+            else:
+                p.copy_((0.5 if leaf == "pn_indicator" else 1.0) * r)
+    return head
+
+
+def forced_pair(seem, cpu_fn, card_fn):
+    """``cpu_fn()`` with each pre-threshold resize and each binary mask
+    recorded, then ``card_fn()`` forced onto the CPU's binary masks, its
+    own resizes recorded. Returns both results, the max rel of the resized
+    logits and the flips (a side of sigmoid 0.5 the two disagree on), each
+    of which must lie within 1e-4 of the logits' scale of the threshold."""
+    blocked, resize = seem._blocked, seem.resize_bilinear_torch
+    logits_c, logits_g, masks = [], [], []
+
+    def recording(store):
+        def f(x, hw):
+            y = resize(x, hw)
+            store.append(y.detach().float().cpu())
+            return y
+        return f
+
+    def keep(m, size):
+        r = blocked(m, size)
+        masks.append(r.cpu())
+        return r
+
+    try:
+        seem.resize_bilinear_torch, seem._blocked = recording(logits_c), keep
+        out_c = cpu_fn()
+        it = iter(masks)
+
+        def forced(m, size):
+            blocked(m, size)
+            return next(it).to(m.device)
+
+        seem.resize_bilinear_torch, seem._blocked = recording(logits_g), forced
+        out_g = card_fn()
+    finally:
+        seem.resize_bilinear_torch, seem._blocked = resize, blocked
+    assert len(logits_g) == len(logits_c)
+    rel, flips = 0.0, 0
+    for g, c in zip(logits_g, logits_c):
+        rel = max(rel, rel_err(g, c))
+        f = (torch.sigmoid(g) < 0.5) != (torch.sigmoid(c) < 0.5)
+        flips += int(f.sum())
+        if f.any():
+            assert c[f].abs().max() < 1e-4 * c.abs().max(), "flip off a near-tie"
+    return out_c, out_g, rel, flips
+
+
+def _flat_out(out):
+    return {f"{k}[{i}]" if isinstance(v, list) else k: x
+            for k, v in out.items() for i, x in enumerate(v if isinstance(v, list) else [v])}
+
+
+def seem_heads_card_vs_cpu(mods, dev="cuda"):
+    """(b) each SEEM head at narrow widths, f32, on the CPU and on the card
+    forced onto the CPU's masks: v0 with grounding and memory, v1 over two
+    masks (the second empty) with memory, the demo's refimg bundle, then
+    the demo with all four prompt kinds (the bundle fed back)."""
+    import copy
+
+    seem = mods["seem"]
+    C, S = SEEM_NARROW["hidden_dim"], SEEM_NARROW["max_spatial_tokens"]
+    g = torch.Generator().manual_seed(16)
+
+    def feats():
+        return ([torch.randn((1, h, w, C), generator=g) for h, w in ((8, 12), (16, 24), (32, 48))],
+                torch.randn((1, 64, 96, C), generator=g))
+
+    (ms, mf), (rms, rmf) = feats(), feats()
+    text = torch.nn.functional.normalize(torch.randn((5, C), generator=g), dim=-1)
+    spatial = dict(spatial_points=torch.rand((1, S, 2), generator=g),
+                   spatial_valid=torch.arange(S)[None] < 12,
+                   spatial_posneg=torch.where(torch.arange(S)[None] < 7, 1, -1))
+    grounding = dict(grounding_tokens=torch.randn((1, 4, C), generator=g),
+                     grounding_valid=torch.tensor([[True, True, True, False]]))
+
+    def to(x, d):
+        if isinstance(x, torch.Tensor):
+            return x.to(d)
+        return [to(y, d) for y in x] if isinstance(x, (list, tuple)) else x
+
+    out = {}
+
+    def compare(name, head, args, kw):
+        head = seed_seem(head, 17).eval()
+        card = copy.deepcopy(head).to(dev)
+        with torch.inference_mode():
+            oc, og, rel, flips = forced_pair(
+                seem, lambda: head(*args, **kw),
+                lambda: card(*to(list(args), dev), **{k: to(v, dev) for k, v in kw.items()}))
+        fc, fg = _flat_out(oc), _flat_out(og)
+        assert set(fc) == set(fg), name
+        assert all(torch.equal(fg[k].cpu(), fc[k]) for k in fc if fc[k].dtype == torch.bool)
+        errs = {k: rel_err(fg[k], fc[k]) for k in fc if fc[k].dtype != torch.bool}
+        assert max(errs.values()) < 1e-4, (name, errs)
+        out[name] = dict(max_rel=max(errs.values()), logits_rel=rel, flips=flips)
+        log(f"  card vs CPU, {name}: outputs max rel {max(errs.values()):.2e}, "
+            f"pre-threshold logits rel {rel:.2e}, flips {flips}")
+        return oc
+
+    compare("SEEMHead", seem.SEEMHead(**SEEM_NARROW, num_spatial_memories=8,
+                                      max_grounding_tokens=4),
+            (ms, mf, text, 20.0),
+            dict(spatial, **grounding, prev_mask=torch.randn((1, 1, 64, 96), generator=g)))
+    compare("SEEMHeadV1", seem.SEEMHeadV1(**SEEM_NARROW, num_spatial_memories=8, sample_size=3),
+            (ms, mf, text, 20.0, *spatial.values(),
+             (torch.arange(S)[None] >= 12).long(),        # mask 1: no valid point
+             torch.randint(0, SEEM_NARROW["num_queries"], (6,), generator=g)),
+            dict(num_masks=2, prev_mask=torch.randn((1, 2, 64, 96), generator=g),
+                 memory_indices=torch.randint(0, 2, (3, 8), generator=g)))
+    demo = dict(max_grounding_tokens=4, max_audio_tokens=4)
+    bundle = compare("SEEMHeadDemo refimg", seem.SEEMHeadDemo(**SEEM_NARROW, **demo),
+                     (rms, rmf, text, 20.0), dict(spatial, task="refimg"))
+    compare("SEEMHeadDemo", seem.SEEMHeadDemo(**SEEM_NARROW, **demo), (ms, mf, text, 20.0),
+            dict(spatial, **grounding, audio_tokens=torch.randn((1, 4, C), generator=g),
+                 audio_valid=torch.tensor([[True, False, True, True]]),
+                 visual_tokens_by_level=bundle["src_visual_queries"],
+                 visual_valid=bundle["src_visual_maskings"],
+                 visual_query_pos=bundle["visual_query_pos"],
+                 visual_query_neg=bundle["visual_query_neg"], task="demo"))
+    return out
+
+
+# the v1 loop of phase 16 (b): narrow widths over a 128x192 image (smaller
+# maps let GroupNorm amplify f32 noise, ROADMAP's trap)
+INTERACTIVE_NARROW = ["xdecoder.hidden_dim=64", "xdecoder.conv_dim=64", "xdecoder.mask_dim=64",
+                      "xdecoder.num_queries=11", "xdecoder.nheads=4",
+                      "xdecoder.dim_feedforward=128", "xdecoder.dec_layers=3",
+                      "xdecoder.enc_layers=2", "xdecoder.backbone.embed_dim=16",
+                      "xdecoder.backbone.depths=[1,1,2,1]"]
+
+
+def interactive_loop_card_vs_cpu(mods, root: Path, dev="cuda"):
+    """(b) ``run.infer_interactive.main --task v1`` at narrow widths on the
+    CPU and on the card (the same seeded weights: ``build_models`` draws
+    from a CPU generator), the card forced onto the CPU's masks: each
+    round's mask logits within 1e-4, and with no flip the same overlay."""
+    from PIL import Image
+
+    inter = mods["inter"]
+    img = root / "narrow.png"
+    Image.fromarray(synthetic_photo(np.random.default_rng(17), (128, 192))).save(img)
+    args = ["--image", str(img), "--task", "v1", "--rounds", str(INTERACTIVE_ROUNDS),
+            "--budget", "16", "--clicks", "60,90;70,110", "--neg-clicks", "10,10",
+            *INTERACTIVE_NARROW]
+    rounds = {}
+
+    def run(side):
+        rounds[side] = []
+        build = inter.build_models
+
+        def hooked(*a, **k):
+            m = build(*a, **k)
+            m.head.register_forward_hook(
+                lambda mod, i, o: rounds[side].append(o["prev_mask"].float().cpu()))
+            return m
+
+        inter.build_models = hooked
+        try:
+            return inter.main([*args, "--out", str(root / f"narrow_{side}.png"), "--device", side])
+        finally:
+            inter.build_models = build
+
+    dst_c, dst_g, rel, flips = forced_pair(mods["seem"], lambda: run("cpu"), lambda: run(dev))
+    assert len(rounds[dev]) == len(rounds["cpu"]) == INTERACTIVE_ROUNDS
+    errs = [rel_err(g, c) for g, c in zip(rounds[dev], rounds["cpu"])]
+    assert max(errs) < 1e-4, errs
+    if flips == 0:
+        assert np.array_equal(np.asarray(Image.open(dst_g)), np.asarray(Image.open(dst_c)))
+    log(f"  card vs CPU, interactive v1 loop: mask logits rel "
+        f"{', '.join(f'{e:.2e}' for e in errs)} by round, pre-threshold logits rel {rel:.2e}, "
+        f"flips {flips}" + ("; overlays equal" if flips == 0 else ""))
+    return dict(rounds_rel=errs, logits_rel=rel, flips=flips)
+
+
+def phase_interactive(mods):
+    """Phase 16: (a) the interactive entry at scannet's full width, (b)
+    the card against the CPU at narrow widths. Neither kernel lies on this
+    path: both counts are set to 0 before and must read 0 after."""
+    band, nce = mods["band"], mods["nce"]
+    band.banded_window_matmul.launches = 0
+    nce.info_nce_fwd.launches = nce.info_nce_bwd.launches = 0
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t = time.perf_counter()
+        out["entry"] = phase16_interactive(mods, root)
+        out["entry_s"] = time.perf_counter() - t
+        launches = (band.banded_window_matmul.launches, nce.info_nce_fwd.launches,
+                    nce.info_nce_bwd.launches)
+        out["launches"] = launches
+        assert launches == (0, 0, 0), f"K1 / K2 launched on the interactive path: {launches}"
+        t = time.perf_counter()
+        prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            out["card_vs_cpu"] = seem_heads_card_vs_cpu(mods)
+            out["card_vs_cpu"]["v1 loop"] = interactive_loop_card_vs_cpu(mods, root)
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+        out["card_vs_cpu_s"] = time.perf_counter() - t
+    log(f"  K1, K2-fwd, K2-bwd launches on the interactive path: {launches}")
+    return out
+
+
 def load_mods():
     """The port's modules by short name (the rank processes of phase 13
     import them anew)."""
@@ -2439,6 +2816,7 @@ def load_mods():
     from geopurify_tpu_torch.models import lift as lift_mod
     from geopurify_tpu_torch.models import pipeline as pipe_mod
     from geopurify_tpu_torch.models import pixel_decoder_deform as pdd_mod
+    from geopurify_tpu_torch.models import seem as seem_mod
     from geopurify_tpu_torch.models import student as student_mod
     from geopurify_tpu_torch.models import xdecoder as xdec_mod
     from geopurify_tpu_torch.ops import band as band_mod
@@ -2451,6 +2829,7 @@ def load_mods():
     from geopurify_tpu_torch.parallel import mesh as mesh_mod
     from geopurify_tpu_torch.run import dryrun as dryrun_mod
     from geopurify_tpu_torch.run import infer2d as infer2d_mod
+    from geopurify_tpu_torch.run import infer_interactive as inter_mod
     from geopurify_tpu_torch.run import optim as optim_mod
     from geopurify_tpu_torch.run import precompute as precompute_mod
     from geopurify_tpu_torch.run import train as train_mod
@@ -2464,7 +2843,8 @@ def load_mods():
                 validate=validate_mod, pool=pool_mod, band=band_mod, lang=lang_mod,
                 xdec=xdec_mod, precompute=precompute_mod, convx=convx_mod, convs=convs_mod,
                 mesh=mesh_mod, dryrun=dryrun_mod, lift=lift_mod, sc=sc_mod, inf=inf_mod,
-                layers=layers_mod, pdd=pdd_mod, msda=msda_mod, infer2d=infer2d_mod)
+                layers=layers_mod, pdd=pdd_mod, msda=msda_mod, infer2d=infer2d_mod,
+                seem=seem_mod, inter=inter_mod)
 
 
 def main() -> int:
@@ -2520,6 +2900,7 @@ def main() -> int:
         parallel = run("13 parallel layer", phase_parallel, mods, Path(scenes10))
     grid = run("14 pruned searches and z-stack", phase_grid_search, mods, scene0)
     two_d = run("15 the 2D family", phase_2d, mods)
+    interactive = run("16 the interactive path", phase_interactive, mods)
 
     # K1 at every shape a main path launched it: the bench-spec scenes
     # (phase 3), the scannet, scannet200 and feature-space preset-scale
@@ -2576,7 +2957,7 @@ def main() -> int:
                   k1_wide={str(k): v for k, v in k1_wide.items()},
                   k1_behind_library=k1_behind, preset=preset,
                   validation_small=val_small, released=released, parallel=parallel,
-                  grid_search=grid, two_d=two_d)
+                  grid_search=grid, two_d=two_d, interactive=interactive)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))

@@ -334,6 +334,17 @@ def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+# geopurify_tpu/models/layers.py:328
+def resize_bilinear_torch(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """NHWC bilinear resize with torch's own semantics, ``F.interpolate(
+    mode='bilinear', align_corners=False)`` without antialiasing: two taps
+    a row, clamped at the border, no widening on downscale (unlike
+    ``resize_bilinear``). The SEEM heads' attention-mask resize."""
+    y = F.interpolate(x.permute(0, 3, 1, 2).to(torch.float32), size=tuple(out_hw),
+                      mode="bilinear", align_corners=False, antialias=False)
+    return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
 class ConvTranspose(nn.Module):
     """flax nn.ConvTranspose with kernel == stride (no overlap, 'SAME'), on
     NHWC tensors; the weight in torch's ConvTranspose2d layout [in, out, k,

@@ -9,15 +9,16 @@ layouts.
 
 ``convert_xdecoder_checkpoint`` converts, as the JAX one does, a FocalNet
 (``focal`` or ``focal_dw``) + transformer-encoder FPN checkpoint with its
-predictor (caption slots kept when present) and language tower. DaViT, ViT
-and deformable-decoder checkpoints go through the standalone converters
-(``convert_davit``, ``convert_vit``, ``convert_deform_pixel_decoder``),
-and ``convert_xdecoder_checkpoint`` names them in its error; SEEM keys
-raise ``NotImplementedError`` (not ported: ROADMAP Queue 1).
+predictor (caption slots kept when present) and language tower. DaViT, ViT,
+deformable-decoder and SEEM checkpoints go through the standalone
+converters (``convert_davit``, ``convert_vit``,
+``convert_deform_pixel_decoder``, ``convert_seem``), and
+``convert_xdecoder_checkpoint`` names them in its error.
 
 ``synthesize_torch_state_dict`` is the inverse: the port's X-Decoder (any
-backbone and pixel decoder, caption slots included) and language tower
-written out under the reference's keys and layouts.
+backbone and pixel decoder, caption slots included, or a SEEM head as the
+predictor) and language tower written out under the reference's keys and
+layouts.
 """
 
 from __future__ import annotations
@@ -33,10 +34,10 @@ from geopurify_tpu_torch.utils.from_jax import _state_dict
 Array = np.ndarray
 SD = Dict[str, Array]
 
-# SEEM, the one 2D-family decoder the port has no module for
-_SEEM = re.compile(r"predictor\.(mask_sptial_embed|spatial_embed|spatial_featured|pn_indicator)")
 # checkpoints that convert_xdecoder_checkpoint leaves to a standalone converter
 _STANDALONE = (
+    (re.compile(r"predictor\.(mask_sptial_embed|spatial_embed|spatial_featured|pn_indicator)"),
+     "a SEEM decoder", "convert_seem"),
     (re.compile(r"(^|\.)backbone\.convs\.\d+\."), "a DaViT backbone", "convert_davit"),
     (re.compile(r"(^|\.)backbone\.(pos_embed|blocks\.\d+\.attn\.qkv)"), "a ViT backbone",
      "convert_vit"),
@@ -321,6 +322,24 @@ def convert_predictor(sd: SD, prefix: str, dec_layers: int) -> Dict[str, Any]:
     return p
 
 
+# geopurify_tpu/utils/convert_xdecoder.py:353
+def convert_seem(sd: SD, prefix: str, dec_layers: int) -> Dict[str, Any]:
+    """torch SEEM decoder (interface/seem_v0.py:27-160) -> the
+    ``models.seem`` heads' tree: the X-Decoder predictor's layout plus the
+    per-level spatial projections (``mask_sptial_embed``, the reference's
+    own spelling), the spatial memory embeddings and the +-1 point
+    indicator, each where the checkpoint has it
+    (``utils.from_jax.seem_from_jax`` names a group a head lacks)."""
+    p = convert_predictor(sd, prefix, dec_layers)
+    for i in range(3):
+        if f"{prefix}.mask_sptial_embed.{i}" in sd:
+            p[f"mask_spatial_embed{i}"] = _get(sd, f"{prefix}.mask_sptial_embed.{i}")
+    for ours in ("spatial_embed", "spatial_featured", "pn_indicator"):
+        if f"{prefix}.{ours}.weight" in sd:
+            p[ours] = _get(sd, f"{prefix}.{ours}.weight")
+    return p
+
+
 # geopurify_tpu/utils/convert_xdecoder.py:374
 def convert_lang_encoder(sd: SD, prefix: str) -> Tuple[Dict[str, Any], Array]:
     """(LanguageEncoder tree, logit_scale before the exp)."""
@@ -356,13 +375,9 @@ def convert_xdecoder_checkpoint(sd: SD, depths=(2, 2, 18, 2), enc_layers: int = 
     ``sem_seg_head.``, or under ``model.``). Returns ``{"xdecoder": state
     dict of models.xdecoder.XDecoderSegModel, "lang": state dict of
     models.lang.LanguageEncoder, "logit_scale": exp of the checkpoint's}``.
-    A SEEM key raises ``NotImplementedError``; a DaViT, ViT or deformable
-    decoder key raises ``ValueError`` naming its standalone converter."""
+    A DaViT, ViT, deformable decoder or SEEM key raises ``ValueError``
+    naming its standalone converter."""
     for key in sd:
-        if _SEEM.search(key):
-            raise NotImplementedError(
-                f"{key}: the SEEM decoder belongs to the 2D family's interactive "
-                "path, not ported yet (ROADMAP Queue 1)")
         for pattern, family, converter in _STANDALONE:
             if pattern.search(key):
                 raise ValueError(
@@ -421,6 +436,8 @@ _RENAME = {
     ),
     "predictor": (
         (r"^(query_feat|query_embed|level_embed|pos_embed_caping)$", r"\1.weight"),
+        (r"^(spatial_embed|spatial_featured|pn_indicator)$", r"\1.weight"),
+        (r"^mask_spatial_embed(\d+)$", r"mask_sptial_embed.\1"),
         (r"^mask_embed\.layers(\d+)\.", r"mask_embed.layers.\1."),
         (r"^cross_attn(\d+)\.", r"transformer_cross_attention_layers.\1."),
         (r"^self_attn(\d+)\.", r"transformer_self_attention_layers.\1."),
@@ -464,8 +481,9 @@ def synthesize_torch_state_dict(xdecoder, lang) -> SD:
     and pixel decoder, caption slots included) and ``LanguageEncoder``
     (modules or their state dicts), such that ``convert_xdecoder_checkpoint``
     (FocalNet + FPN) or the standalone converters give their state dicts
-    back unchanged. The JAX version fills the FocalNet + FPN keys with
-    random values from Flax shape trees."""
+    back unchanged. A SEEM head goes in as the predictor: ``xdecoder`` a
+    state dict with its keys under ``predictor.``. The JAX version fills
+    the FocalNet + FPN keys with random values from Flax shape trees."""
     xsd = _numpy_state(xdecoder)
     out: SD = {}
     for module, prefix in (("backbone", "backbone."),

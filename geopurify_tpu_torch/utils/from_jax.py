@@ -20,14 +20,17 @@ for the port's modules, whose parameter names mirror the Flax names:
   tower's ``positional_embedding``, ``lang_proj``, ``logit_scale``, an
   Embed's ``embedding``; the X-Decoder's caption slots, the ViT's
   ``pos_embed`` / ``rel_pos_*`` tables, the deformable decoder's
-  ``level_embed``) keep their name and layout.
+  ``level_embed``; the SEEM heads' ``mask_spatial_embed{i}``,
+  ``spatial_embed``, ``spatial_featured``, ``pn_indicator``,
+  ``level_embed``, ``query_feat``, ``query_embed``, ``class_embed``) keep
+  their name and layout.
 """
 
 from __future__ import annotations
 
 import re
 from collections.abc import Mapping
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -92,4 +95,33 @@ def student_from_jax(variables) -> Dict[str, torch.Tensor]:
     student variables: ``params`` and ``batch_stats`` (running mean/var)."""
     sd = _state_dict(variables["params"])
     sd.update(_state_dict(variables["batch_stats"]))
+    return sd
+
+
+# the SEEM parameter groups Flax creates only for the prompt kinds passed at
+# ``.init`` (geopurify_tpu/models/seem.py:106-107); the port builds them all
+_SEEM_GROUPS = (
+    ("the spatial prompts' (pn_indicator, mask_spatial_embed{i})",
+     re.compile(r"^(pn_indicator|mask_spatial_embed\d+)$")),
+    ("the spatial memories' (spatial_embed, spatial_featured)",
+     re.compile(r"^spatial_(embed|featured)$")),
+)
+
+
+def seem_from_jax(variables, head: Optional[torch.nn.Module] = None) -> Dict[str, torch.Tensor]:
+    """State dict of ``models.seem.SEEMHead`` / ``SEEMHeadV1`` /
+    ``SEEMHeadDemo`` from the JAX head's variables. Every port head has the
+    spatial prompts' parameters, and v0 / v1 the spatial memories too;
+    Flax makes them only when ``.init`` saw spatial prompts. A tree without
+    the prompts' group (or, given the port ``head``, without any of its
+    parameters) raises ``KeyError`` naming the group: init the JAX head
+    with every prompt kind."""
+    sd = params_from_jax(variables)
+    want = set(head.state_dict()) if head is not None else {"pn_indicator", "mask_spatial_embed0"}
+    missing = sorted(want - set(sd))
+    if missing:
+        groups = [name for name, pat in _SEEM_GROUPS if any(pat.match(k) for k in missing)]
+        raise KeyError(f"the JAX SEEM tree lacks {' and '.join(groups) or 'some'} parameters "
+                       f"{missing}: Flax creates them only for the prompt kinds passed at "
+                       ".init; init the JAX head with every prompt kind")
     return sd

@@ -173,15 +173,14 @@ def test_xdecoder_converter_errors(xdec, caplog):
         tcx.convert_xdecoder_checkpoint(
             {**sd, "backbone.layers.0.blocks.0.dw1.weight": np.zeros((8, 1, 3, 3), np.float32)},
             **kw)
-    # the other backbones and the deformable decoder have converters of their
-    # own (the JAX checkpoint converter reads FocalNet + FPN only); SEEM is
-    # not ported
+    # the other backbones, the deformable decoder and SEEM have converters
+    # of their own (the JAX checkpoint converter reads FocalNet + FPN only)
     for key, error, match in (
             ("backbone.convs.0.proj.weight", ValueError, "DaViT.*convert_davit"),
             ("backbone.pos_embed", ValueError, "ViT.*convert_vit"),
             ("sem_seg_head.pixel_decoder.transformer.level_embed", ValueError,
              "deformable.*convert_deform_pixel_decoder"),
-            ("sem_seg_head.predictor.mask_sptial_embed.0", NotImplementedError, "SEEM")):
+            ("sem_seg_head.predictor.mask_sptial_embed.0", ValueError, "SEEM.*convert_seem")):
         with pytest.raises(error, match=match):
             tcx.convert_xdecoder_checkpoint({**sd, key: np.zeros(1, np.float32)}, **kw)
     # caption slots are kept, as JAX keeps them, without a warning

@@ -6,7 +6,8 @@ modules' own state dicts back: the focal_dw FocalNet with caption slots
 (through ``convert_xdecoder_checkpoint``), DaViT, ViT (transposed convs,
 the [1, g, g, C] position table) and the deformable pixel decoder (through
 the standalone converters, which ``convert_xdecoder_checkpoint`` names for
-them); SEEM keys still raise ``NotImplementedError``."""
+them) and the SEEM heads (``convert_seem``, named the same way; the heads
+it loads answer as the JAX heads do with ``jcx.convert_seem``'s tree)."""
 
 import dataclasses
 
@@ -23,7 +24,12 @@ from geopurify_tpu_torch.models import vit_backbone as tvit
 from geopurify_tpu_torch.models import xdecoder as txd
 from geopurify_tpu_torch.utils import convert_xdecoder as tcx
 from geopurify_tpu_torch.utils.from_jax import _state_dict, params_from_jax
+from geopurify_tpu.models import seem as jseem
+from geopurify_tpu_torch.models import seem as tseem
+from geopurify_tpu_torch.utils.from_jax import seem_from_jax
 from tests.test_torch_port_backbones2d import DAVIT_SMALL, _vit_small
+from tests.test_torch_port_seem import (DEMO_KW, SCALE, V0_KW, V1_KW, check, feature_inputs,
+                                        run_both, seeded_head, spatial_prompts, v1_inputs)
 
 LANG = dict(vocab_size=64, width=16, layers=1, heads=2, context_length=6, dim_proj=16)
 
@@ -112,13 +118,44 @@ def test_deform_pixel_decoder_converts_like_jax():
     _same_state(got, m.state_dict())
 
 
+@pytest.mark.parametrize("kind", ["v0", "v1", "demo"])
+def test_seem_converts_like_jax(monkeypatch, kind):
+    """A SEEM head written out as a reference-layout predictor (the
+    spatial projections under the reference's ``mask_sptial_embed``) comes
+    back through the port's ``convert_seem`` equal to the JAX
+    ``convert_seem`` carried by ``seem_from_jax`` and to its own state; the
+    head it loads answers as the JAX head does on the JAX tree."""
+    jcls, tcls, kw = {"v0": (jseem.SEEMHead, tseem.SEEMHead, V0_KW),
+                      "v1": (jseem.SEEMHeadV1, tseem.SEEMHeadV1, V1_KW),
+                      "demo": (jseem.SEEMHeadDemo, tseem.SEEMHeadDemo, DEMO_KW)}[kind]
+    head, _ = seeded_head(tcls, 14, **kw)
+    sd = _reference(head, "predictor")
+    p = "sem_seg_head.predictor"
+    assert sd[f"{p}.mask_sptial_embed.2"].shape == (16, 16)
+    assert (f"{p}.spatial_embed.weight" in sd) == (kind != "demo")
+    jtree = jcx.convert_seem(sd, p, kw["dec_layers"])
+    got = _state_dict(tcx.convert_seem(sd, p, kw["dec_layers"]))
+    _same_state(got, seem_from_jax(jtree, head))
+    _same_state(got, head.state_dict())
+    loaded = tcls(**kw).eval()
+    loaded.load_state_dict(got)
+    rng, ms, mf, text = feature_inputs(15)
+    pts, valid, tags = spatial_prompts(rng)
+    if kind == "v1":
+        args, call = v1_inputs(16, 1)[1], {}
+    else:
+        args = (ms, mf, text, SCALE)
+        call = dict(spatial_points=pts, spatial_valid=valid, spatial_posneg=tags)
+    check(*run_both(monkeypatch, jcls(**kw), {"params": jtree}, loaded, *args, **call))
+
+
 @pytest.mark.parametrize("key,error,match", [
     ("backbone.convs.0.proj.weight", ValueError, "convert_davit"),
     ("backbone.pos_embed", ValueError, "convert_vit"),
     ("sem_seg_head.pixel_decoder.transformer.level_embed", ValueError,
      "convert_deform_pixel_decoder"),
-    ("sem_seg_head.predictor.mask_sptial_embed.0", NotImplementedError, "SEEM"),
-    ("sem_seg_head.predictor.pn_indicator.weight", NotImplementedError, "SEEM"),
+    ("sem_seg_head.predictor.mask_sptial_embed.0", ValueError, "SEEM.*convert_seem"),
+    ("sem_seg_head.predictor.pn_indicator.weight", ValueError, "SEEM.*convert_seem"),
 ])
 def test_checkpoints_outside_the_focal_fpn_scope_raise(focal_dw, key, error, match):
     _, _, sd, kw = focal_dw
