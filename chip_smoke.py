@@ -133,6 +133,20 @@ Phases (any failure exits non-zero; each prints its seconds):
    v1 over two masks with memory, the demo's refimg bundle and all four
    prompt kinds) and the v1 loop of ``main`` (outputs and pre-threshold
    logits within 1e-4, flips only at near-ties).
+17. the 2D trainer, which launches neither kernel (both counts read 0):
+   (a) ``run.train2d.main`` at ``scannet``'s full width (FocalNet-L, the
+   6-layer FPN, the 9-layer head, 512 wide with 201 queries, bf16 compute
+   on f32 parameters, 4096 criterion points; the 12-layer language tower,
+   49408 tokens): seg on synthetic 484x648 images (6 steps, then
+   ``--resume`` for one more), vlp (3 steps, 32-token captions), joint zip
+   (3) and switch (2: both tasks), interactive at 512x512 with SEEM's 101
+   queries (3), and seg over a COCO-json fixture and joint zip beside a
+   caption fixture (2 each), with seconds a step from the second on, its
+   split (forward + backward, the host Hungarian, clip + AdamW), the peak
+   memory, finite losses, parameters moved, a checkpoint; (b) one step's
+   losses and gradients of each task on the card against the CPU in f32
+   with TF32 off at tiny widths, the card on the CPU's attention masks
+   (within 1e-4 of their scale).
 
 A K1 row at a preset's class count (or feature space's 512) that is
 slower than its library call is flagged (``FLAG:`` lines naming the preset,
@@ -2802,6 +2816,348 @@ def phase_interactive(mods):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the 2D trainer
+# ---------------------------------------------------------------------------
+
+# (a): ``run.train2d.main`` at ``scannet``'s full width, one run a row:
+# (name, arguments, steps, config overrides)
+TRAIN2D_RUNS = (
+    ("seg", ["--task", "seg", "--synthetic"], 6, []),
+    ("seg --resume", ["--task", "seg", "--synthetic"], 1, []),
+    ("vlp", ["--task", "vlp", "--caption-len", "32"], 3, []),
+    ("joint zip", ["--task", "joint", "--joint-mode", "zip"], 3, []),
+    ("joint switch", ["--task", "joint", "--joint-mode", "switch"], 2, []),
+    ("interactive", ["--task", "interactive", "--image-hw", "512x512"], 3, [SEEM_QUERIES]),
+    ("seg --data-root", ["--task", "seg"], 2, []),
+    ("joint zip --vlp-data-root", ["--task", "joint", "--joint-mode", "zip"], 2, []),
+)
+
+
+def write_train2d_data(root: Path, rng, n_images=4):
+    """A COCO-json instance set (``coco/``: 480x640 photos, three polygon and
+    one uncompressed-RLE instance each, two categories) and a caption set
+    (``caps/``: the same photos, two captions each)."""
+    from PIL import Image
+
+    for sub in ("coco/images", "caps/images"):
+        (root / sub).mkdir(parents=True)
+    images, anns, caps = [], [], {}
+    for i in range(n_images):
+        img = synthetic_photo(rng)
+        Image.fromarray(img).save(root / "coco" / "images" / f"{i}.png")
+        Image.fromarray(img).save(root / "caps" / "images" / f"{i}.png")
+        caps[f"{i}.png"] = [f"a synthetic room number {i}", "coloured boxes over noise"]
+        images.append({"id": i, "file_name": f"images/{i}.png", "height": 480, "width": 640})
+        for k in range(4):
+            y0, x0 = int(rng.integers(0, 300)), int(rng.integers(0, 400))
+            y1, x1 = y0 + int(rng.integers(40, 180)), x0 + int(rng.integers(40, 240))
+            if k < 3:
+                seg = [[x0, y0, x1, y0, x1, y1, x0, y1]]
+            else:
+                m = np.zeros((480, 640), bool)
+                m[y0:y1, x0:x1] = True
+                flat = m.reshape(-1, order="F")
+                edges = np.flatnonzero(np.diff(np.concatenate([[False], flat, [not flat[-1]]])))
+                seg = {"size": [480, 640], "counts": np.diff(np.concatenate([[0], edges])).tolist()}
+            anns.append({"id": len(anns), "image_id": i, "category_id": 1 + k % 2,
+                         "segmentation": seg})
+    (root / "coco" / "annotations.json").write_text(json.dumps(
+        {"images": images, "annotations": anns,
+         "categories": [{"id": 1, "name": "chair"}, {"id": 2, "name": "table"}]}))
+    (root / "caps" / "captions.json").write_text(json.dumps(caps))
+    return root / "coco", root / "caps"
+
+
+def instrument_train2d(t2d, crit, device="cuda"):
+    """Wraps ``run.train2d``'s ``apply_step`` (each step timed, with the time
+    its calls of the criterion's host Hungarian assignment and of
+    ``Train2DOptimizer.step`` (clip + AdamW) took; the device synchronised
+    before each timer starts), and ``new_state`` (the initial parameters
+    kept on the card). Returns the record (``steps``: per step (step,
+    Hungarian, optimizer) seconds) and a function that restores all four."""
+    saved = (t2d.apply_step, crit.hungarian_match, t2d.Train2DOptimizer.step, t2d.new_state)
+    apply_step, hungarian, opt_step, new_state = saved
+    t = {"steps": [], "hungarian_s": [], "opt_s": [], "initial": None}
+
+    def timed(fn, key):
+        def run(*a, **k):
+            sync(device)
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            sync(device)
+            t[key].append(time.perf_counter() - t0)
+            return r
+        return run
+
+    def step(*a, **k):
+        n_h, n_o = len(t["hungarian_s"]), len(t["opt_s"])
+        sync(device)
+        t0 = time.perf_counter()
+        r = apply_step(*a, **k)
+        sync(device)
+        t["steps"].append((time.perf_counter() - t0, sum(t["hungarian_s"][n_h:]),
+                           sum(t["opt_s"][n_o:])))
+        return r
+
+    def keep_initial(r, params):
+        state = new_state(r, params)
+        t["initial"] = [p.detach().clone() for p in state.params.parameters()]
+        return state
+
+    t2d.apply_step = step
+    crit.hungarian_match = timed(hungarian, "hungarian_s")
+    t2d.Train2DOptimizer.step = timed(opt_step, "opt_s")
+    t2d.new_state = keep_initial
+
+    def restore():
+        t2d.apply_step, crit.hungarian_match, t2d.Train2DOptimizer.step, t2d.new_state = saved
+    return t, restore
+
+
+def phase17_train2d(mods, root: Path, smi: str, device="cuda", preset="scannet", over=()):
+    """(a) ``run.train2d.main`` at ``scannet``'s full width (FocalNet-L, the
+    6-layer FPN, the 9-layer head, 512 wide with 201 queries, bf16 compute,
+    f32 parameters, 4096 criterion points; the 12-layer language tower with
+    49408 tokens): each run of ``TRAIN2D_RUNS`` with its seconds a step,
+    the step's split (forward + backward, the host Hungarian, clip +
+    AdamW), the peak memory, finite losses, parameters moved after step 2,
+    a checkpoint. ``preset`` / ``over`` narrow it for a CPU rehearsal."""
+    import contextlib
+    import io
+
+    import shutil
+
+    t2d, crit = mods["train2d"], mods["crit"]
+    coco, caps = write_train2d_data(root, np.random.default_rng(17))
+    t, restore = instrument_train2d(t2d, crit, device)
+    cuda = device == "cuda"
+    out = {}
+    try:
+        for name, args, steps, overrides in TRAIN2D_RUNS:
+            # the resumed run goes on in the first run's directory
+            path = root / ("seg" if name.startswith("seg --resume") else
+                           name.replace(" ", "").replace("--", "-"))
+            extra = ["--save-path", str(path), "--steps", str(steps), "--print-every", "1",
+                     "--num-points", "4096", "--preset", preset, "--device", device]
+            if name == "seg --resume":
+                extra += ["--resume", str(path / "ckpt")]
+            if name.endswith("--data-root"):
+                extra += ["--data-root", str(coco)]
+            if name.endswith("--vlp-data-root"):
+                extra += ["--data-root", str(coco), "--vlp-data-root", str(caps)]
+            n_step = len(t["steps"])
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            sync(device)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(io.StringIO()):
+                state = t2d.main([*args, *extra, *overrides, *over])
+            sync(device)
+            secs = time.perf_counter() - t0
+            recs = [json.loads(ln) for ln in (path / "metrics.jsonl").read_text().splitlines()]
+            step0 = state.step - steps
+            recs = [rc for rc in recs if rc["step"] > step0]
+            assert [rc["step"] for rc in recs] == list(range(step0 + 1, state.step + 1)), recs
+            assert all(np.isfinite(v) for rc in recs for k, v in rc.items()
+                       if k.startswith("loss")), recs
+            ckpt = sorted((path / "ckpt").glob("step_*.pt"))
+            assert ckpt and ckpt[-1].name == f"step_{state.step}.pt", ckpt
+            moved = sum(not torch.equal(a, p.detach()) for a, p in
+                        zip(t["initial"], state.params.parameters()))
+            n_params = len(t["initial"])
+            if state.step >= 2 and name != "seg --resume":
+                assert moved > n_params // 2, f"{name}: {moved} of {n_params} tensors moved"
+            step_s, hung, opt = (list(c) for c in zip(*t["steps"][n_step:]))
+            assert len(step_s) == steps
+            r = dict(s=secs, steps=steps, step_s=step_s, hungarian_s=hung, opt_s=opt,
+                     fwd_bwd_s=[s - h - o for s, h, o in zip(step_s, hung, opt)],
+                     peak_GiB=torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0,
+                     moved=f"{moved}/{n_params}", losses=[rc["loss"] for rc in recs],
+                     n_params=int(sum(p.numel() for p in state.params.parameters())))
+            out[name] = r
+            later = slice(1, None) if len(step_s) > 1 else slice(None)
+            log(f"  train2d {name} [{smi}]: {secs:.2f} s for {steps} step(s) + build + "
+                f"checkpoint; s/step {', '.join(f'{v:.3f}' for v in step_s)} (from step 2: "
+                f"mean {np.mean(step_s[later]):.3f}); fwd+bwd "
+                f"{np.mean(r['fwd_bwd_s'][later]):.3f}, host Hungarian "
+                f"{np.mean(hung[later]):.4f}, clip+AdamW "
+                f"{np.mean(opt[later]):.4f} s; peak {r['peak_GiB']:.2f} GiB; "
+                f"{r['n_params'] / 1e6:.1f} M parameters, {r['moved']} tensors moved; "
+                f"losses {', '.join(f'{v:.4f}' for v in r['losses'])}")
+            del state
+            if name != "seg":           # its checkpoint is the resume's
+                shutil.rmtree(path / "ckpt")
+            if cuda:
+                torch.cuda.empty_cache()
+    finally:
+        restore()
+    return out
+
+
+def _grads(params):
+    return {k: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().double().cpu()
+            for k, p in params.named_parameters()}
+
+
+def compare_losses_grads(cpu, card, tol=1e-4):
+    """Losses within ``tol`` relative; every gradient leaf within ``tol`` of
+    its norm, but a leaf whose CPU gradient is under 1e-6 of the whole
+    gradient's norm (zero in exact arithmetic: an attention key bias, a
+    norm's bias ahead of a GroupNorm), whose card gradient must stay under
+    1e-5 of it. Returns the worst loss and gradient errors."""
+    (lc, gc), (lg, gg) = cpu, card
+    loss_err = max(rel_err(lg[k], lc[k]) for k in lc)
+    assert loss_err < tol, (loss_err, lc, lg)
+    total = float(torch.sqrt(sum((g ** 2).sum() for g in gc.values())))
+    worst = 0.0
+    for k, g in gc.items():
+        n, d = float(g.norm()), float((gg[k] - g).norm())
+        if n <= 1e-6 * total:
+            assert float(gg[k].norm()) <= 1e-5 * total, (k, n)
+            continue
+        assert d <= tol * n, (k, d, n)
+        worst = max(worst, d / n)
+    return loss_err, worst
+
+
+def train2d_card_vs_cpu(mods, dev="cuda"):
+    """(b) one step's losses and gradients of each task on the card against
+    the CPU, f32 with TF32 off, at the tiny widths of the CPU tests: the
+    X-Decoder tasks with the card on the CPU's attention masks
+    (``attn_mask_override``), the interactive task through ``forced_pair``;
+    the criterion's points and the spatial queries' sample shared."""
+    import copy
+
+    t2d, seem = mods["train2d"], mods["seem"]
+    from geopurify_tpu_torch.data.mappers import InteractiveMapper
+    from geopurify_tpu_torch.data.visual_sampler import StrokeSamplerConfig
+    from geopurify_tpu_torch.models.lang import PROMPT_TEMPLATES, HashTokenizer
+
+    cfg = mods["cfg"].load_config("tiny", overrides=["xdecoder.mask_shape=[64,96]",
+                                                     "text.width=16"])
+    g = torch.Generator().manual_seed(170)
+    cap_len, ls = 12, t2d.LOGIT_SCALE
+    params = t2d.Train2DParams(model=t2d.build_model(cfg, g, caption_len=cap_len),
+                               lang=t2d.build_lang(cfg, cap_len, g),
+                               no_object=torch.randn(16, generator=g) * 0.5)
+    rng = np.random.default_rng(171)
+    seg = t2d.synthetic_batch(rng, 2, (64, 96), 4)
+    imgs = torch.from_numpy(rng.uniform(0, 255, (2, 64, 96, 3)).astype(np.float32))
+    vlp = (imgs, *t2d.synthetic_captions(rng, 2, cap_len, cfg.text.vocab_size))
+    text = t2d.unit_rows(5, 16, g)
+    tk = HashTokenizer(vocab_size=cfg.text.vocab_size, context_length=cap_len)
+    class_ids = torch.from_numpy(tk([PROMPT_TEMPLATES[0].format(n)
+                                     for n in cfg.data.all_label])[0])
+    points = tuple(torch.randint(0, n, (256,), generator=g) for n in (16, 24))
+
+    def run(p, device, loss, forced):
+        p = p.to(device)
+        p.zero_grad(set_to_none=True)
+        to = (lambda x: x.to(device)) if device != "cpu" else (lambda x: x)
+        losses = loss(p, to, forced)
+        losses[0].backward()
+        return {k: v.detach().cpu() for k, v in losses[1].items()}, _grads(p)
+
+    def masks_of(p, images, text, caption_tokens=None):
+        with torch.no_grad():
+            return p.model(images, text, ls, caption_tokens=caption_tokens,
+                           return_attn=True)["attn_masks"][:-1]
+
+    def seg_loss(p, to, forced):
+        return t2d.seg_losses(p, *map(to, seg), to(text), ls, 256, points=tuple(map(to, points)),
+                              attn_mask_override=[to(m) for m in forced["seg"]])
+
+    def vlp_loss(p, to, forced):
+        return t2d.vlp_losses(p, *map(to, vlp), to(text), ls,
+                              attn_mask_override=[to(m) for m in forced["vlp"]])
+
+    def joint_seg_loss(p, to, forced):
+        return t2d.joint_seg_losses(p, *map(to, seg), to(class_ids), ls, 256,
+                                    points=tuple(map(to, points)),
+                                    attn_mask_override=[to(m) for m in forced["jseg"]])
+
+    def zip_loss(p, to, forced):
+        return t2d.joint_zip_losses(
+            p, tuple(map(to, seg)), tuple(map(to, vlp)), to(class_ids), ls, 256,
+            points=tuple(map(to, points)),
+            seg_kw=dict(attn_mask_override=[to(m) for m in forced["jseg"]]),
+            vlp_kw=dict(attn_mask_override=[to(m) for m in forced["jvlp"]]))
+
+    with torch.no_grad():
+        tok, _ = params.lang.encode_tokens(vlp[1])
+        ctext = t2d.class_text(params, class_ids)
+    forced = {"seg": masks_of(params, seg[0], text), "vlp": masks_of(params, imgs, text, tok),
+              "jseg": masks_of(params, seg[0], ctext), "jvlp": masks_of(params, imgs, ctext, tok)}
+    out = {}
+    for name, loss in (("seg", seg_loss), ("vlp", vlp_loss), ("joint seg", joint_seg_loss),
+                       ("joint zip", zip_loss)):
+        cpu = run(params, "cpu", loss, forced)
+        card = run(copy.deepcopy(params), dev, loss, forced)
+        out[name] = compare_losses_grads(cpu, card)
+
+    # the interactive task: SEEM v1 on the visual sampler's prompts
+    xc = dataclasses.replace(cfg.xdecoder, mask_shape=(64, 64))
+    from geopurify_tpu_torch.models.layers import flax_init_
+    from geopurify_tpu_torch.models.xdecoder import _make_backbone, _make_pixel_decoder
+
+    head = seem.SEEMHeadV1(hidden_dim=16, dim_proj=16, num_queries=xc.num_queries, nheads=2,
+                           dim_feedforward=32, dec_layers=2, mask_dim=16, max_spatial_tokens=8)
+    iparams = t2d.Train2DParams(backbone=_make_backbone(xc), pixdec=_make_pixel_decoder(xc),
+                                head=head)
+    flax_init_(iparams, g)
+    seed_seem(iparams.head, 172)
+    mapper = InteractiveMapper(image_size=64, sampler_cfg=StrokeSamplerConfig(max_candidate=2),
+                               grounding=False)
+    batch = t2d.synthetic_interactive_batch(rng, mapper, 1, (64, 64), 3, 2, 8)
+    qidx = torch.from_numpy(rng.integers(0, xc.num_queries, 6))
+    itext = text[:-2]
+
+    def inter_loss(p, to, forced):
+        return t2d.interactive_losses(p, *map(to, batch), to(itext), ls, to(qidx))
+
+    cpu, card, rel, flips = forced_pair(
+        seem, lambda: run(iparams, "cpu", inter_loss, None),
+        lambda: run(copy.deepcopy(iparams), dev, inter_loss, None))
+    out["interactive"] = (*compare_losses_grads(cpu, card), rel, flips)
+    for name, r in out.items():
+        log(f"  train2d card vs CPU {name}: losses rel {r[0]:.2e}, worst gradient leaf "
+            f"{r[1]:.2e} of its norm"
+            + (f", resized mask logits rel {r[2]:.2e}, flips {r[3]}" if len(r) > 2 else ""))
+    return out
+
+
+def phase_train2d(mods):
+    """Phase 17: (a) ``run.train2d.main`` at scannet's full width, (b) the
+    card against the CPU at tiny widths. Neither kernel lies on this path:
+    both counts are set to 0 before and must read 0 after."""
+    band, nce = mods["band"], mods["nce"]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    band.banded_window_matmul.launches = 0
+    nce.info_nce_fwd.launches = nce.info_nce_bwd.launches = 0
+    out = {"card": smi}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        out["entry"] = phase17_train2d(mods, Path(tmp), smi)
+        out["entry_s"] = time.perf_counter() - t
+    launches = (band.banded_window_matmul.launches, nce.info_nce_fwd.launches,
+                nce.info_nce_bwd.launches)
+    out["launches"] = launches
+    assert launches == (0, 0, 0), f"K1 / K2 launched on the 2D trainer's path: {launches}"
+    t = time.perf_counter()
+    prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out["card_vs_cpu"] = train2d_card_vs_cpu(mods)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    out["card_vs_cpu_s"] = time.perf_counter() - t
+    log(f"  K1, K2-fwd, K2-bwd launches on the 2D trainer's path: {launches}; entry runs "
+        f"{out['entry_s']:.1f} s, card vs CPU {out['card_vs_cpu_s']:.1f} s [{smi}]")
+    return out
+
+
 def load_mods():
     """The port's modules by short name (the rank processes of phase 13
     import them anew)."""
@@ -2810,6 +3166,7 @@ def load_mods():
     from geopurify_tpu_torch.data import batch as batch_mod
     from geopurify_tpu_torch.data import loaders as loaders_mod
     from geopurify_tpu_torch.data import synthetic as synth_mod
+    from geopurify_tpu_torch.models import criterion as crit_mod
     from geopurify_tpu_torch.models import lang as lang_mod
     from geopurify_tpu_torch.models import inference2d as inf_mod
     from geopurify_tpu_torch.models import layers as layers_mod
@@ -2833,6 +3190,7 @@ def load_mods():
     from geopurify_tpu_torch.run import optim as optim_mod
     from geopurify_tpu_torch.run import precompute as precompute_mod
     from geopurify_tpu_torch.run import train as train_mod
+    from geopurify_tpu_torch.run import train2d as train2d_mod
     from geopurify_tpu_torch.run import validate as validate_mod
     from geopurify_tpu_torch.utils import convert_sonata as convs_mod
     from geopurify_tpu_torch.utils import convert_xdecoder as convx_mod
@@ -2844,7 +3202,7 @@ def load_mods():
                 xdec=xdec_mod, precompute=precompute_mod, convx=convx_mod, convs=convs_mod,
                 mesh=mesh_mod, dryrun=dryrun_mod, lift=lift_mod, sc=sc_mod, inf=inf_mod,
                 layers=layers_mod, pdd=pdd_mod, msda=msda_mod, infer2d=infer2d_mod,
-                seem=seem_mod, inter=inter_mod)
+                seem=seem_mod, inter=inter_mod, train2d=train2d_mod, crit=crit_mod)
 
 
 def main() -> int:
@@ -2901,6 +3259,7 @@ def main() -> int:
     grid = run("14 pruned searches and z-stack", phase_grid_search, mods, scene0)
     two_d = run("15 the 2D family", phase_2d, mods)
     interactive = run("16 the interactive path", phase_interactive, mods)
+    train2d = run("17 the 2D trainer", phase_train2d, mods)
 
     # K1 at every shape a main path launched it: the bench-spec scenes
     # (phase 3), the scannet, scannet200 and feature-space preset-scale
@@ -2957,7 +3316,7 @@ def main() -> int:
                   k1_wide={str(k): v for k, v in k1_wide.items()},
                   k1_behind_library=k1_behind, preset=preset,
                   validation_small=val_small, released=released, parallel=parallel,
-                  grid_search=grid, two_d=two_d, interactive=interactive)
+                  grid_search=grid, two_d=two_d, interactive=interactive, train2d=train2d)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))

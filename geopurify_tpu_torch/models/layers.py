@@ -429,3 +429,34 @@ def resize_bicubic_antialias(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.
     y = torch.einsum("Hh,bhwc->bHwc", Wh, x.to(torch.float32))
     y = torch.einsum("Ww,bhwc->bhWc", Ww, y)
     return y.to(x.dtype)
+
+
+def flax_init_(module: torch.nn.Module, generator: torch.Generator) -> None:
+    """The Flax initialisers' distributions (not their bits) from
+    ``generator``: Dense and Conv kernels LeCun normal (truncated, fan-in),
+    biases 0, norm scales 1, FocalNet's layer scales 1e-4, the SEEM
+    queries, level and memory embeddings N(0, 1), its projections (and the
+    X-Decoder's class and caption projections) truncated N(0, 0.02^2) and
+    the point indicator N(0, 0.02^2): X-Decoder and SEEM modules."""
+    from geopurify_tpu_torch.models.student import truncated_normal_, variance_scaling_
+
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "weight" and p.dim() >= 2:
+                cpu = torch.empty(p.shape)
+                variance_scaling_(cpu, 1.0, int(np.prod(p.shape[1:])), generator)
+                p.copy_(cpu)
+            elif leaf == "weight":
+                p.fill_(1.0)
+            elif leaf == "bias":
+                p.zero_()
+            elif leaf.startswith("gamma_"):
+                p.fill_(1e-4)
+            elif leaf in ("class_embed", "caping_embed") or leaf.startswith("mask_spatial_embed"):
+                cpu = torch.empty(p.shape)
+                truncated_normal_(cpu, 0.02, generator)
+                p.copy_(cpu)
+            else:
+                scale = 0.02 if leaf == "pn_indicator" else 1.0
+                p.copy_(scale * torch.randn(p.shape, generator=generator))

@@ -279,10 +279,13 @@ class XDecoderSegModel(nn.Module):
         self.predictor = _make_head(cfg, caption_len)
 
     def forward(self, images, text_embeddings, logit_scale,
-                caption_tokens: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                caption_tokens: Optional[torch.Tensor] = None,
+                **head_kw) -> Dict[str, torch.Tensor]:
+        """``head_kw``: the head's instrumentation (``attn_mask_override``
+        / ``return_attn``), as ``apply_head`` takes it."""
         mask_features, multi_scale = encode_pixel_features(self, images)
         out = apply_head(self, multi_scale, mask_features, text_embeddings, logit_scale,
-                         caption_tokens=caption_tokens)
+                         caption_tokens=caption_tokens, **head_kw)
         div = self.cfg.size_divisibility
         out["padded_hw"] = torch.tensor([-(-images.shape[1] // div) * div,
                                          -(-images.shape[2] // div) * div])

@@ -50,42 +50,13 @@ def parse_clicks(spec: str):
     return out
 
 
-def _init_(module: torch.nn.Module, generator: torch.Generator) -> None:
-    """The Flax initialisers' distributions (not their bits) from
-    ``generator``: Dense and Conv kernels LeCun normal (truncated, fan-in),
-    biases 0, norm scales 1, FocalNet's layer scales 1e-4, the SEEM
-    queries, level and memory embeddings N(0, 1), its projections
-    truncated N(0, 0.02^2) and the point indicator N(0, 0.02^2)."""
-    from geopurify_tpu_torch.models.student import truncated_normal_, variance_scaling_
-
-    with torch.no_grad():
-        for name, p in module.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf == "weight" and p.dim() >= 2:
-                cpu = torch.empty(p.shape)
-                variance_scaling_(cpu, 1.0, int(np.prod(p.shape[1:])), generator)
-                p.copy_(cpu)
-            elif leaf == "weight":
-                p.fill_(1.0)
-            elif leaf == "bias":
-                p.zero_()
-            elif leaf.startswith("gamma_"):
-                p.fill_(1e-4)
-            elif leaf == "class_embed" or leaf.startswith("mask_spatial_embed"):
-                cpu = torch.empty(p.shape)
-                truncated_normal_(cpu, 0.02, generator)
-                p.copy_(cpu)
-            else:
-                scale = 0.02 if leaf == "pn_indicator" else 1.0
-                p.copy_(scale * torch.randn(p.shape, generator=generator))
-
-
 def build_models(xc, task: str, budget: int, n_cls: int, device) -> SimpleNamespace:
     """The backbone, pixel decoder and SEEM head (``SEEMHeadV1``, or
     ``SEEMHeadDemo`` for ``task='demo'``, ``budget`` prompt tokens) of the
     f32 X-Decoder config ``xc``, seeded from ``torch.Generator`` seed 0,
     and ``n_cls`` unit text embeddings. The one place weights are made: a
     test replaces it to carry the JAX entry's weights across."""
+    from geopurify_tpu_torch.models.layers import flax_init_
     from geopurify_tpu_torch.models.seem import SEEMHeadDemo, SEEMHeadV1
     from geopurify_tpu_torch.models.xdecoder import _make_backbone, _make_pixel_decoder
 
@@ -98,7 +69,7 @@ def build_models(xc, task: str, budget: int, n_cls: int, device) -> SimpleNamesp
                       mask_dim=xc.mask_dim, max_spatial_tokens=budget))
     g = torch.Generator().manual_seed(0)
     for mod in (m.backbone, m.pixel_decoder, m.head):
-        _init_(mod, g)
+        flax_init_(mod, g)
         mod.to(device).eval()
     text = torch.randn((n_cls, xc.hidden_dim), generator=g)
     m.text = (text / text.norm(dim=-1, keepdim=True)).to(device)

@@ -125,3 +125,21 @@ def seem_from_jax(variables, head: Optional[torch.nn.Module] = None) -> Dict[str
                        f"{missing}: Flax creates them only for the prompt kinds passed at "
                        ".init; init the JAX head with every prompt kind")
     return sd
+
+
+def train2d_from_jax(params, head: Optional[torch.nn.Module] = None) -> Dict[str, torch.Tensor]:
+    """State dict of ``run.train2d.Train2DParams`` from a JAX
+    ``Train2DState.params`` tree (or a gradient tree of its shape), for each
+    task's tree: ``{model, no_object}``, ``{model, lang}``, ``{model, lang,
+    no_object}`` or ``{backbone, pixdec, head}``. ``model`` / ``lang`` /
+    ``backbone`` / ``pixdec`` go through ``params_from_jax``, ``head``
+    through ``seem_from_jax`` (given the port ``head``, every parameter it
+    has must be there), ``no_object`` stays as it is."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, tree in params.items():
+        if name == "no_object":
+            sd[name] = torch.from_numpy(np.array(tree))
+            continue
+        sub = seem_from_jax(tree, head) if name == "head" else params_from_jax(tree)
+        sd.update({f"{name}.{k}": v for k, v in sub.items()})
+    return sd

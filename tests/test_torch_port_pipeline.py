@@ -131,8 +131,9 @@ def test_lift_scene_matches_jax():
 def test_port_imports_no_jax():
     """Every module of the port imports without JAX, the JAX package or the
     ``regex`` module, the Stage-1 modules, the data layer, the validation
-    entry, the converters, the precompute entry, the parallel layer and the
-    lift backends included."""
+    entry, the converters, the precompute entry, the parallel layer, the
+    lift backends and the 2D trainer with its criterion and data layer
+    included."""
     stage1 = ("ops.infonce", "ops.contrastive", "ops.voxelize", "models.sonata",
               "models.lang", "data.synthetic", "run.optim", "run.train",
               "utils.checkpoint", "utils.profiling", "data.loaders", "data.ply",
@@ -140,7 +141,9 @@ def test_port_imports_no_jax():
               "utils.visualization", "run.validate", "utils.convert_xdecoder",
               "utils.convert_sonata", "data.feature_loader", "data.selector",
               "run.precompute", "parallel.mesh", "parallel.view_parallel", "run.dryrun",
-              "models.lift_backends", "models.lift_variants")
+              "models.lift_backends", "models.lift_variants", "run.train2d",
+              "models.criterion", "data.seg2d", "data.mappers", "data.joint_loader",
+              "data.visual_sampler")
     code = (
         "import importlib, pkgutil, sys\n"
         "import geopurify_tpu_torch as p\n"
@@ -156,7 +159,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[1]) >= 46
+    assert int(out.stdout.split()[1]) >= 70
 
 
 def test_default_device_without_cuda_raises(monkeypatch):

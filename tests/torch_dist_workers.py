@@ -112,3 +112,65 @@ def train_main(device, argv):
 
     state = train.main(argv)
     return state.step, {k: v.numpy() for k, v in state.student.state_dict().items()}
+
+
+def train2d_tiny_params(overrides):
+    """The ``tiny`` preset's seg parameters (X-Decoder + no-object), seeded."""
+    from geopurify_tpu_torch.run import train2d
+
+    cfg = load_config("tiny", overrides=overrides)
+    g = torch.Generator().manual_seed(0)
+    model = train2d.build_model(cfg, g)
+    return cfg, train2d.Train2DParams(model=model, no_object=torch.randn(
+        (cfg.xdecoder.hidden_dim,), generator=g) * 0.02)
+
+
+def train2d_dp_seg_step(device, overrides, batches, text, num_points):
+    """One data-parallel seg step of ``run.train2d`` (rank r on
+    ``batches[r]``, the criterion's generator seeded 5 and folded by rank):
+    this rank's own gradients and losses (what it hands the all-reduce),
+    the criterion's points it drew, the averaged gradients the optimizer
+    received, the parameters after it, the losses the step returned and
+    whether the replicas are bit-equal."""
+    from geopurify_tpu_torch.models import criterion
+    from geopurify_tpu_torch.run import train2d
+
+    cfg, params = train2d_tiny_params(overrides)
+    mesh = make_mesh(cfg.parallel.dp, cfg.parallel.tp)
+    params.to(device)
+    opt = train2d.Train2DOptimizer(params.parameters(), lambda n: 1e-2, 0.05, 0.0)
+    state = train2d.Train2DState(params, opt, 0, torch.Generator().manual_seed(5))
+    names = [k for k, _ in params.named_parameters()]
+    seen = {}
+    reduce, sample = train2d.all_reduce_mean_, criterion.sample_mask_points
+
+    def recording_reduce(tensors, n, group=None):
+        seen["local"] = [t.detach().numpy().copy() for t in tensors]
+        return reduce(tensors, n, group)
+
+    def recording_sample(*a, **k):
+        rows, cols = sample(*a, **k)
+        seen["points"] = [rows.numpy().copy(), cols.numpy().copy()]
+        return rows, cols
+
+    train2d.all_reduce_mean_, criterion.sample_mask_points = recording_reduce, recording_sample
+    grads = {}
+    inner = opt.step
+
+    def capturing_step():
+        grads.update({k: p.grad.numpy().copy() for k, p in params.named_parameters()})
+        return inner()
+
+    opt.step = capturing_step
+    try:
+        step = train2d.make_train2d_step(mesh, num_points)
+        losses = step(state, *(torch.from_numpy(a) for a in batches[mesh.rank]),
+                      torch.from_numpy(text), train2d.LOGIT_SCALE)
+    finally:
+        train2d.all_reduce_mean_, criterion.sample_mask_points = reduce, sample
+    return {"grads": grads, "losses": {k: float(v) for k, v in losses.items()},
+            "local_grads": dict(zip(names, seen["local"][:-1])),
+            "local_losses": dict(zip(losses, seen["local"][-1].tolist())),
+            "points": seen["points"],
+            "params": {k: v.detach().numpy().copy() for k, v in params.named_parameters()},
+            "equal": replicas_equal(list(params.parameters()))}
