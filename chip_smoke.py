@@ -147,6 +147,24 @@ Phases (any failure exits non-zero; each prints its seconds):
    losses and gradients of each task on the card against the CPU in f32
    with TF32 off at tiny widths, the card on the CPU's attention masks
    (within 1e-4 of their scale).
+18. the data-preparation path: (a) a raw ScanNet scan written to a
+   temporary directory (a ``_vh_clean_2.ply`` of 150,000 vertices over a
+   6 x 5 x 3 m room with its ``.labels.ply``, a version-4 ``.sens`` of 400
+   frames, 1296x968 JPEG colour and 640x480 zlib depth rendered from the
+   points, label images and a label tsv) through ``data.preprocess.main``
+   ``scannet-3d`` and ``scannet-2d`` at the subcommands' defaults; (b)
+   ``run.validate.main --device cuda`` at ``scannet`` over that output (K1
+   launched 19 times, K2 none; seconds split into preprocess 3D / 2D, host
+   load and evaluate); (c) the host load by part on that scene: the
+   ``.pth`` read, cameras, images, depths, the mapping on the card against
+   ``native.compute_mapping`` (exact) and the loader's numpy voxel dedup
+   against ``native.fnv_voxelize`` (bit-equal), each timed, the dedup also
+   at phase 10's 2^20 points; (d)
+   ``run.parity.main`` over a released-layout checkpoint: ``--dump`` on the
+   card, ``--device cpu --compare`` on that dump, at the default config
+   (bf16; status and worst rel recorded, a ``FLAG:`` line when above the
+   tool's 5e-2 limit) and with ``--dtype float32`` (TF32 off), which
+   must exit 0.
 
 A K1 row at a preset's class count (or feature space's 512) that is
 slower than its library call is flagged (``FLAG:`` lines naming the preset,
@@ -3158,6 +3176,383 @@ def phase_train2d(mods):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the data-preparation path: a raw ScanNet scan through
+# geopurify-torch-preprocess into run.validate.main, the host load by part,
+# and the parity dump / compare
+# ---------------------------------------------------------------------------
+
+SCANNET_DEPTH_K = np.array([[577.870605, 0.0, 319.5], [0.0, 577.870605, 239.5],
+                            [0.0, 0.0, 1.0]])
+# NYU40 ids of the room's parts, and the raw ScanNet category ids a
+# label-filt image carries (the label tsv maps the one to the other)
+ROOM_NYU40 = dict(wall=1, floor=2, cabinet=3, bed=4, chair=5, sofa=6, table=7, door=8,
+                  window=9, bookshelf=10, picture=11, desk=14)
+
+
+def raw_room(seed: int, n: int, size=(6.0, 5.0, 3.0)):
+    """~``n`` surface points of a ``size`` (x, y, z metres) room: the floor,
+    four walls with a door, a window and a picture on them, and furniture
+    boxes (their tops and sides) standing on the floor, uniform by area,
+    with NYU40 labels and label-coloured uint8 RGB."""
+    X, Y, Z = size
+    rects = [((0, 0, 0), (X, 0, 0), (0, Y, 0), "floor"),
+             ((0, 0, 0), (X, 0, 0), (0, 0, Z), "wall"), ((0, Y, 0), (X, 0, 0), (0, 0, Z), "wall"),
+             ((0, 0, 0), (0, Y, 0), (0, 0, Z), "wall"), ((X, 0, 0), (0, Y, 0), (0, 0, Z), "wall"),
+             ((1.0, 0.01, 0.0), (0.9, 0, 0), (0, 0, 2.1), "door"),
+             ((X - 0.01, 1.5, 1.0), (0, 1.6, 0), (0, 0, 1.2), "window"),
+             ((2.5, Y - 0.01, 1.4), (1.0, 0, 0), (0, 0, 0.7), "picture")]
+    boxes = [((0.4, 3.2, 0.0), (2.0, 1.5, 0.5), "bed"), ((2.8, 1.6, 0.0), (1.4, 0.8, 0.75), "table"),
+             ((2.9, 0.9, 0.0), (0.45, 0.45, 0.9), "chair"), ((3.6, 2.6, 0.0), (0.45, 0.45, 0.9), "chair"),
+             ((4.6, 4.1, 0.0), (1.2, 0.6, 0.8), "desk"), ((5.4, 0.2, 0.0), (0.5, 1.1, 1.8), "bookshelf"),
+             ((0.2, 0.5, 0.0), (0.5, 0.9, 1.2), "cabinet"), ((2.6, 3.9, 0.0), (1.8, 0.8, 0.7), "sofa")]
+    for (x0, y0, z0), (dx, dy, dz), name in boxes:
+        top = z0 + dz
+        rects += [((x0, y0, top), (dx, 0, 0), (0, dy, 0), name),
+                  ((x0, y0, z0), (dx, 0, 0), (0, 0, dz), name),
+                  ((x0, y0 + dy, z0), (dx, 0, 0), (0, 0, dz), name),
+                  ((x0, y0, z0), (0, dy, 0), (0, 0, dz), name),
+                  ((x0 + dx, y0, z0), (0, dy, 0), (0, 0, dz), name)]
+    o, u, v = (np.array([r[i] for r in rects], np.float64) for i in range(3))
+    area = np.linalg.norm(np.cross(u, v), axis=1)
+    rng = np.random.default_rng(seed)
+    which = rng.choice(len(rects), n, p=area / area.sum())
+    a, b = rng.random((n, 1)), rng.random((n, 1))
+    pts = o[which] + a * u[which] + b * v[which] + rng.normal(scale=0.002, size=(n, 3))
+    nyu = np.array([ROOM_NYU40[r[3]] for r in rects])[which]
+    palette = rng.integers(40, 216, (41, 3))
+    rgb = np.clip(palette[nyu] + rng.normal(scale=12, size=(n, 3)), 0, 255).astype(np.uint8)
+    return pts.astype(np.float32), rgb, nyu
+
+
+def write_ply_vertices(path: Path, pts, rgb, label=None):
+    """A binary little-endian vertex PLY in ScanNet's property layout (x y z
+    float, red green blue alpha uchar, and ``label`` ushort for the
+    ``.labels.ply``)."""
+    fields = [("x", "<f4"), ("y", "<f4"), ("z", "<f4"), ("red", "u1"), ("green", "u1"),
+              ("blue", "u1"), ("alpha", "u1")] + ([("label", "<u2")] if label is not None else [])
+    rec = np.empty(len(pts), np.dtype(fields))
+    rec["x"], rec["y"], rec["z"] = pts.T
+    rec["red"], rec["green"], rec["blue"] = rgb.T
+    rec["alpha"] = 255
+    if label is not None:
+        rec["label"] = label
+    types = {"<f4": "float", "u1": "uchar", "<u2": "ushort"}
+    header = ["ply", "format binary_little_endian 1.0", f"element vertex {len(pts)}"]
+    header += [f"property {types[t]} {name}" for name, t in fields] + ["end_header\n"]
+    with open(path, "wb") as f:
+        f.write("\n".join(header).encode("ascii"))
+        f.write(rec.tobytes())
+
+
+def room_poses(n_frames: int, size=(6.0, 5.0, 3.0)):
+    """Camera -> world poses on an ellipse 1.2-1.7 m up inside the room,
+    turning twice around and looking across it, slightly down."""
+    X, Y, _ = size
+    from geopurify_tpu_torch.data.synthetic import _look_at
+
+    poses = []
+    for k in range(n_frames):
+        t = 4 * np.pi * k / n_frames
+        eye = np.array([X / 2 + 1.2 * np.cos(t / 2), Y / 2 + 0.9 * np.sin(t / 2),
+                        1.45 + 0.25 * np.sin(3 * t)])
+        target = np.array([X / 2 + 2.5 * np.cos(t + 0.3), Y / 2 + 2.2 * np.sin(t + 0.3), 0.7])
+        poses.append(np.linalg.inv(_look_at(eye, target)))
+    return poses
+
+
+def write_raw_scannet(root: Path, sid: str, n_vertices: int, n_frames: int, device="cuda"):
+    """A raw ScanNet scan under ``root/scans/<sid>``: ``<sid>_vh_clean_2.ply``
+    and its ``.labels.ply`` (NYU40 ids), a version-4 ``<sid>.sens`` of
+    ``n_frames`` frames (1296x968 JPEG colour and 640x480 zlib depth in
+    millimetres, rendered from the points by the z-buffer, ScanNet's
+    intrinsics, depth shift 1000), ``label-filt/<frame>.png`` raw category
+    ids for every 20th frame, and ``root/labels.tsv`` (raw id -> NYU40)."""
+    import struct
+    import zlib
+    from concurrent.futures import ThreadPoolExecutor
+    from io import BytesIO
+
+    from PIL import Image
+
+    scan = root / "scans" / sid
+    scan.mkdir(parents=True)
+    pts, rgb, nyu = raw_room(7, n_vertices)
+    write_ply_vertices(scan / f"{sid}_vh_clean_2.ply", pts, rgb)
+    write_ply_vertices(scan / f"{sid}_vh_clean_2.labels.ply", pts, rgb, label=nyu)
+    raw_id = {k: 100 + k for k in ROOM_NYU40.values()}
+    (root / "labels.tsv").write_text("id\traw_category\tnyu40id\n" + "".join(
+        f"{r}\tc{n}\t{n}\n" for n, r in raw_id.items()))
+    (scan / "label-filt").mkdir()
+    pts_t = torch.from_numpy(pts).to(device, torch.float64)
+    rgb_t = torch.from_numpy(rgb).to(device)
+    lab_t = torch.from_numpy(np.vectorize(raw_id.get)(nyu).astype(np.uint8)).to(device)
+    Kc = SCANNET_K[:3, :3]
+
+    def encode(args):
+        color, mm = args
+        buf = BytesIO()
+        Image.fromarray(color).save(buf, format="JPEG", quality=90)
+        return buf.getvalue(), zlib.compress(mm.tobytes())
+
+    poses = room_poses(n_frames)
+    with ThreadPoolExecutor(8) as ex:          # PIL and zlib release the GIL
+        futures = []
+        for k, pose in enumerate(poses):
+            w2c = np.linalg.inv(pose)
+            depth, _, _ = zbuffer(pts_t, w2c, SCANNET_DEPTH_K, 640, 480, 2, device)
+            mm = torch.round(depth * 1000).clamp(0, 65535).to(torch.int32).cpu().numpy()
+            _, pix, ids = zbuffer(pts_t, w2c, Kc, 1296, 968, 3, device)
+            img = torch.full((968 * 1296, 3), 128, dtype=torch.uint8, device=device)
+            img[pix] = rgb_t[ids]
+            futures.append(ex.submit(encode, (img.reshape(968, 1296, 3).cpu().numpy(),
+                                              mm.astype(np.uint16))))
+            if k % 20 == 0:
+                lab = torch.zeros(968 * 1296, dtype=torch.uint8, device=device)
+                lab[pix] = lab_t[ids]
+                Image.fromarray(lab.reshape(968, 1296).cpu().numpy()).save(
+                    scan / "label-filt" / f"{k}.png")
+        blobs = [f.result() for f in futures]
+    K4 = lambda K: np.pad(K, ((0, 1), (0, 1))).astype(np.float32) + np.diag([0, 0, 0, 1])  # noqa: E731
+    with open(scan / f"{sid}.sens", "wb") as f:
+        f.write(struct.pack("I", 4))
+        f.write(struct.pack("Q", 9) + b"synthetic")
+        for m in (K4(Kc), np.eye(4), K4(SCANNET_DEPTH_K), np.eye(4)):
+            f.write(np.asarray(m, np.float32).tobytes())
+        f.write(struct.pack("<iiIIIIfQ", 2, 1, 1296, 968, 640, 480, 1000.0, n_frames))
+        for pose, (cb, db) in zip(poses, blobs):
+            f.write(pose.astype(np.float32).tobytes())
+            f.write(struct.pack("<QQQQ", 0, 0, len(cb), len(db)))
+            f.write(cb)
+            f.write(db)
+
+
+def host_load_by_part(mods, root: Path, sid: str, cfg):
+    """The loader's host work on the preprocessed scene, part by part, the
+    way ``SceneDataset.make_scene_batch`` does it: read the ``.pth``, the
+    cameras, each view's colour and depth image (one pass each), then the
+    mapping of every view (on the card, ``ops/projection.compute_mapping``,
+    with its results copied back, against ``native.compute_mapping``:
+    exact) and the voxel dedup (the loader's numpy route against
+    ``native.fnv_voxelize``: bit-equal, and again at phase 10's 2^20
+    points), each the least of 3 timed runs after a warm-up."""
+    from geopurify_tpu_torch import native
+    from geopurify_tpu_torch.data import cameras
+    from geopurify_tpu_torch.ops import projection, voxelize
+
+    loaders = mods["loaders"]
+    fus = cfg.fusion
+    W, H = fus.img_dim
+    assert native.available(), "the native host library did not build"
+    parts = {}
+    t = time.perf_counter()
+    sp = loaders.load_scene_any(str(root / "3d" / f"{sid}_vh_clean_2.pth"))
+    parts["read_pth"] = time.perf_counter() - t
+    t = time.perf_counter()
+    cams = cameras.load_scene_cameras(str(root / "2d" / sid), frame_stride=fus.frame_stride,
+                                      resolution_scale=fus.resolution_scale, points=sp.xyz)
+    parts["cameras"] = time.perf_counter() - t
+    parts.update(images=0.0, depths=0.0)
+    views = []
+    for cam in cams:
+        t = time.perf_counter()
+        loaders._load_image(cam.image_path, (W, H))
+        parts["images"] += time.perf_counter() - t
+        t = time.perf_counter()
+        depth = loaders._load_depth(cam.depth_path, (W, H), fus.depth_scale)
+        parts["depths"] += time.perf_counter() - t
+        views.append((cam.world_to_camera,
+                      loaders._scale_intrinsic(cam.intrinsic, (cam.width, cam.height), (W, H)),
+                      depth))
+    pts = torch.from_numpy(sp.xyz).to("cuda", torch.float64)
+    card, parts["mapping_card"] = best_of(lambda: [
+        [x.cpu().numpy() for x in projection.compute_mapping(
+            pts, w2c, K, depth, (W, H), cut_bound=fus.cut_boundary,
+            vis_thres=fus.visibility_threshold)] for w2c, K, depth in views], 3)
+    nat, parts["mapping_native"] = best_of(lambda: [
+        native.compute_mapping(sp.xyz, w2c, K, depth, (W, H), fus.cut_boundary,
+                               fus.visibility_threshold) for w2c, K, depth in views], 3)
+    mism = sum(int((a != b).sum()) for cv, nv in zip(card, nat) for a, b in zip(cv, nv))
+    n_vis = sum(int(cv[2].sum()) for cv in card)
+
+    def discrete(xyz):
+        d = np.floor(xyz / cfg.data.voxel_size)
+        return np.floor(d - d.min(0))
+
+    def dedups(disc):
+        """(native result, its s, numpy result, its s): the native FNV
+        dedup beside the loader's numpy one."""
+        nat, nat_s = best_of(lambda: native.fnv_voxelize(disc.astype(np.int64)), 3)
+        ref, np_s = best_of(lambda: voxelize.sparse_quantize_np(disc), 3)
+        return nat, nat_s, ref, np_s
+
+    vox_nat, parts["voxelize_native"], vox_np, parts["voxelize_numpy"] = dedups(
+        discrete(sp.xyz))
+    vox_equal = all(np.array_equal(a, b) for a, b in zip(vox_nat, vox_np))
+    # the same two at phase 10's scene size (2^20 points of a room)
+    big_nat, big_nat_s, big_np, big_np_s = dedups(discrete(raw_room(11, 2**20)[0]))
+    big_equal = all(np.array_equal(a, b) for a, b in zip(big_nat, big_np))
+    # the loader's whole load again, warm (a new dataset: no cached scene)
+    _, warm_s = best_of(lambda: loaders.SceneDataset(cfg, split="val", device="cuda")
+                        .make_scene_batch(sid), 2)
+    aside = ("mapping_native", "voxelize_native")
+    rest = warm_s - sum(v for k, v in parts.items() if k not in aside)
+    log(f"host load by part ({len(sp.xyz)} points, {len(cams)} views, {n_vis} point-views "
+        f"visible): the loader warm {warm_s * 1e3:.1f} ms = "
+        + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in parts.items() if k not in aside)
+        + f", the rest (padding, stacking, copies to the card) {rest * 1e3:.1f} ms; beside "
+        f"them mapping_native {parts['mapping_native'] * 1e3:.1f} ms, voxelize_native "
+        f"{parts['voxelize_native'] * 1e3:.1f} ms")
+    log(f"voxel dedup at 2^20 points ({len(big_np[0])} voxels): native {big_nat_s * 1e3:.1f} ms, "
+        f"numpy (the loader's) {big_np_s * 1e3:.1f} ms")
+    log(f"host load checks: native mapping mismatches {mism}; native voxels bit-equal "
+        f"{vox_equal} ({len(vox_np[0])} voxels), at 2^20 points {big_equal}")
+    assert mism == 0, f"native.compute_mapping differs from the card's mapping in {mism} entries"
+    assert vox_equal and big_equal, "native.fnv_voxelize differs from the numpy dedup"
+    return dict(parts_s=parts, warm_load_s=warm_s, rest_s=rest, views=len(cams),
+                visible=n_vis, mapping_mismatches=mism, voxels=len(vox_np[0]),
+                voxelize_bit_equal=vox_equal,
+                dedup_2e20=dict(voxels=len(big_np[0]), native_s=big_nat_s, numpy_s=big_np_s,
+                                bit_equal=big_equal))
+
+
+def parity_pair(parity, base, dump: Path, extra=()):
+    """``run.parity.main`` with ``--dump`` on the card, then ``--device cpu
+    --compare`` on that dump: (its exit status, worst rel, the printed
+    lines, both seconds, the dump)."""
+    import contextlib
+    import io
+
+    _, dump_s = synced(lambda: parity.main(base + ["--dump", str(dump), "--device", "cuda",
+                                                   *extra]))
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        try:
+            parity.main(base + ["--compare", str(dump), "--device", "cpu", *extra])
+            code = None
+        except SystemExit as e:
+            code = e.code
+    lines = out.getvalue().strip().splitlines()
+    worst = float(lines[-1].split("worst rel ")[1].rstrip(")"))
+    return code, worst, lines, dump_s, time.perf_counter() - t, dict(np.load(dump))
+
+
+def phase18_parity(mods, root: Path):
+    """``run.parity.main`` over a released-layout checkpoint (phase 12's):
+    ``--dump`` on the card, then ``--device cpu --compare`` on that dump, at
+    the default config (the X-Decoder in bf16) and with ``--dtype float32``
+    (the card's TF32 off). The f32 pair must exit
+    0. The bf16 pair's status and worst rel are recorded: both devices'
+    bf16 runs lie ~1e-1 from their own f32 run at this depth (nine rounds
+    of thresholded attention on bf16 logits), so across devices it may
+    exceed the tool's 5e-2 limit; a FLAG line says so when it does."""
+    from geopurify_tpu_torch.run import parity
+
+    ckpt, mb, _ = released_xdecoder(mods, root)
+    base = ["--ckpt", str(ckpt)]
+    rec = {"checkpoint_mb": mb}
+    for label, extra in (("default", ()), ("f32", ("--dtype", "float32"))):
+        prev = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        if extra:
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            code, worst, lines, dump_s, compare_s, acts = parity_pair(
+                parity, base, root / f"parity_{label}.npz", extra)
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+        for line in lines:
+            log(f"  parity {label} (CPU against the card's dump): {line}")
+        log(f"parity {label}: dump on the card {dump_s:.1f} s, compare on the CPU "
+            f"{compare_s:.1f} s, exit status {code}, worst rel {worst:.3e}")
+        assert all(np.isfinite(v).all() for v in acts.values()), "non-finite parity dump"
+        rec[label] = dict(exit=code, worst_rel=worst, dump_s=dump_s, compare_s=compare_s,
+                          lines=lines, shapes={k: list(v.shape) for k, v in acts.items()})
+    if rec["default"]["exit"] != 0:
+        log(f"FLAG: run.parity at the default config (bf16): the CPU against the card's dump "
+            f"gives worst rel {rec['default']['worst_rel']:.3e}, above the tool's 5e-2 limit; "
+            f"in f32 {rec['f32']['worst_rel']:.3e}")
+    assert rec["f32"]["exit"] == 0, f"run.parity --compare in f32 exited {rec['f32']['exit']}"
+    return rec
+
+
+def phase_prep(mods, n_vertices=150_000, n_frames=400):
+    """Phase 18: (a) a raw ScanNet scan through ``preprocess.main``
+    (``scannet-3d``, ``scannet-2d`` at its defaults with the label tsv);
+    (b) ``run.validate.main --device cuda`` at ``scannet`` over that output,
+    K1 launched 19 times (its count set to 0 just before), K2 none; (c) the
+    host load by part; (d) the parity dump on the card and its compare on
+    the CPU, at the default config and in f32."""
+    from geopurify_tpu_torch.data import preprocess
+
+    band, nce = mods["band"], mods["nce"]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    sid = "scene0707_00"
+    rec = {"card": smi}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t = time.perf_counter()
+        write_raw_scannet(root, sid, n_vertices, n_frames)
+        rec["write_raw_s"] = time.perf_counter() - t
+        sens_mb = (root / "scans" / sid / f"{sid}.sens").stat().st_size / 1e6
+        scans = str(root / "scans")
+        t = time.perf_counter()
+        preprocess.main(["scannet-3d", "--scans", scans, "--out", str(root / "3d")])
+        rec["preprocess_3d_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        preprocess.main(["scannet-2d", "--scans", scans, "--out", str(root / "2d"),
+                         "--label-map", str(root / "labels.tsv")])
+        rec["preprocess_2d_s"] = time.perf_counter() - t
+        d2 = root / "2d" / sid
+        n_out = {sub: len(os.listdir(d2 / sub)) for sub in ("color", "depth", "pose", "label")}
+        coords, colors, labels = torch.load(root / "3d" / f"{sid}_vh_clean_2.pth",
+                                            weights_only=False)
+        log(f"raw scan: {n_vertices} vertices, {n_frames} frames ({sens_mb:.0f} MB .sens) "
+            f"written in {rec['write_raw_s']:.1f} s; preprocess scannet-3d "
+            f"{rec['preprocess_3d_s']:.2f} s, scannet-2d {rec['preprocess_2d_s']:.2f} s -> "
+            f"{n_out}; labels {np.unique(labels).astype(int).tolist()}")
+        assert coords.shape == (n_vertices, 3) and n_out == dict.fromkeys(n_out, n_frames // 20)
+        assert set(np.unique(labels)) <= set(range(20)) | {255} and (labels < 20).all()
+        # the loader's layout: the 320x240 stream's intrinsics as the scene's
+        # colour intrinsics; the preprocess already took every 20th frame
+        (d2 / "intrinsic").mkdir()
+        np.savetxt(d2 / "intrinsic" / "intrinsic_color.txt", np.loadtxt(root / "2d" / "intrinsics.txt"))
+        (root / "list.txt").write_text(sid + "\n")
+        over = PRESET_OVERRIDES + dataset_overrides(root) + [
+            "fusion.frame_stride=1", "fusion.resolution_scale=1.0"]
+        cfg = mods["cfg"].load_config("scannet", overrides=over)
+        band.banded_window_matmul.launches = 0
+        nce.info_nce_fwd.launches = nce.info_nce_bwd.launches = 0
+        with Instrument(mods) as ins:
+            t = time.perf_counter()
+            result = mods["validate"].main(["--preset", "scannet", "--device", "cuda"] + over)
+            rec["validate_s"] = time.perf_counter() - t
+        launches = (band.banded_window_matmul.launches, nce.info_nce_fwd.launches,
+                    nce.info_nce_bwd.launches)
+        (r,) = ins.scenes
+        st = r["stages"]
+        log(f"run.validate.main over the preprocessed scene: load {r['load_s']:.2f} s (P={r['P']}, "
+            f"{r['points']} points, M={r['M']}, {r['voxels']} voxels, {r['views']} of V={r['V']} "
+            f"views); evaluate {r['seconds']:.2f} s = views {st['views']:.2f} + fuse_fill "
+            f"{st['fuse_fill']:.2f} + pool_classify {st['pool_classify']:.2f}; K1, K2-fwd, "
+            f"K2-bwd launches {launches}, band_overflow {r['band_overflow']}, peak "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB; {r['covered']:.1%} of the points seen, "
+            f"{r['predicted']} classes predicted; mIoU {result['summary']['all']}")
+        assert r["points"] == n_vertices and r["views"] >= 0.75 * (n_frames // 20), r
+        assert launches == (cfg.pooling.num_iterations, 0, 0), launches
+        assert r["k1_launches"] == cfg.pooling.num_iterations and r["band_overflow"] == 0
+        assert r["finite"] and r["covered"] > 0.5, r
+        assert all(np.isfinite(v) for g in result["summary"].values() for v in g.values())
+        rec.update(scene=r, launches=launches, result=result)
+        rec["host_load"] = host_load_by_part(mods, root, sid, cfg)
+        log(f"a scene: preprocess 3D {rec['preprocess_3d_s']:.2f} s + 2D "
+            f"{rec['preprocess_2d_s']:.2f} s, host load {r['load_s']:.2f} s, evaluate "
+            f"{r['seconds']:.2f} s [{smi}]")
+        rec["parity"] = phase18_parity(mods, root)
+    return rec
+
+
 def load_mods():
     """The port's modules by short name (the rank processes of phase 13
     import them anew)."""
@@ -3260,6 +3655,7 @@ def main() -> int:
     two_d = run("15 the 2D family", phase_2d, mods)
     interactive = run("16 the interactive path", phase_interactive, mods)
     train2d = run("17 the 2D trainer", phase_train2d, mods)
+    prep = run("18 the data-preparation path", phase_prep, mods)
 
     # K1 at every shape a main path launched it: the bench-spec scenes
     # (phase 3), the scannet, scannet200 and feature-space preset-scale
@@ -3295,6 +3691,11 @@ def main() -> int:
                              "validate --distributed, 2 ranks]",
                         launches=parallel["k1_launches"], **k1_base,
                         **k1_wide[(1 << 18, 6144, 19)]))
+    # phase 18's run.validate.main over the scene geopurify-torch-preprocess wrote
+    k1_rows.append(dict(name="banded_window_matmul[M=262144,band=6144,C=19;"
+                             "preprocessed scene]",
+                        launches=prep["launches"][0], **k1_base,
+                        **k1_wide[(1 << 18, 6144, 19)]))
     # phase 6's step, phase 12's run.train.main over on-disk scenes and
     # phase 13's data-parallel steps (the same A=4096, NEG=63, E=128 shape)
     k2_rows = [dict(name=label, route="cuda", source="geopurify_tpu_torch/csrc/infonce.cu",
@@ -3316,7 +3717,8 @@ def main() -> int:
                   k1_wide={str(k): v for k, v in k1_wide.items()},
                   k1_behind_library=k1_behind, preset=preset,
                   validation_small=val_small, released=released, parallel=parallel,
-                  grid_search=grid, two_d=two_d, interactive=interactive, train2d=train2d)
+                  grid_search=grid, two_d=two_d, interactive=interactive, train2d=train2d,
+                  prep=prep)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))

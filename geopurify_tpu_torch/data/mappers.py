@@ -1,17 +1,24 @@
-"""Dataset mappers of 2D training: host numpy, explicit randomness.
+"""Dataset mappers of 2D training and evaluation: host numpy, explicit
+randomness.
 
-Port of the part of geopurify_tpu/data/mappers.py that ``run.train2d``
-reaches: the panoptic label codec (``rgb2id`` / ``id2rgb``, id = R + 256 G
-+ 256^2 B), the transform toolkit (the documented semantics of
-detectron2's ResizeShortestEdge, Resize, ResizeScale, FixedSizeCrop and
-RandomFlip, over numpy and PIL with an explicit ``np.random.Generator``),
-and three mappers: ``PanopticMapper`` (per-segment masks, classes and
-boxes; ``new_baseline`` adds large-scale jitter), ``InteractiveMapper``
-(panoptic instances -> the visual sampler's spatial prompts, class or
-sentence groundings) and ``VLPMapper`` (square resize, caption tokens).
-A copy of the JAX code, so that a seed gives the same outputs in both
-packages. ``InteractiveMapper`` stores ``hash(text)`` of each grounding,
-which Python randomises per process.
+Port of geopurify_tpu/data/mappers.py: the panoptic label codec
+(``rgb2id`` / ``id2rgb``, id = R + 256 G + 256^2 B), the transform toolkit
+(the documented semantics of detectron2's ResizeShortestEdge, Resize,
+ResizeScale, FixedSizeCrop and RandomFlip, over numpy and PIL with an
+explicit ``np.random.Generator``), the ten mappers and ``build_mapper``,
+which dispatches on the registry catalog's mapper kinds
+(``data/registry_catalog.py``): ``SemanticMapper`` (per-class masks),
+``PanopticMapper`` (per-segment masks, classes and boxes; ``new_baseline``
+adds large-scale jitter), ``InstanceMapper`` (COCO polygons / RLEs /
+arrays), ``InteractiveMapper`` (panoptic instances -> the visual sampler's
+spatial prompts, class or sentence groundings), ``RefCOCOMapper``
+(referring masks and sentences), ``VLPMapper`` (square resize, caption
+tokens) and the evaluation mappers ``EvalSemSegMapper``,
+``PanoEvalMapper``, ``ImageNetMapper`` and ``PascalVOCIXMapper`` (object
+masks, shape-sampler prompts, prompted class names). A copy of the JAX
+code, so that a seed gives the same outputs in both packages.
+``InteractiveMapper`` and ``RefCOCOMapper`` store ``hash(text)`` of each
+grounding, which Python randomises per process.
 """
 
 from __future__ import annotations
@@ -30,7 +37,9 @@ __all__ = [
     "rgb2id", "id2rgb",
     "ResizeShortestEdge", "ResizeFixed", "ResizeScaleAug", "FixedSizeCrop",
     "RandomFlip", "apply_transform_gens",
-    "PanopticMapper", "InteractiveMapper", "VLPMapper",
+    "SemanticMapper", "PanopticMapper", "InstanceMapper", "InteractiveMapper",
+    "RefCOCOMapper", "VLPMapper", "EvalSemSegMapper", "PanoEvalMapper",
+    "ImageNetMapper", "PascalVOCIXMapper", "build_mapper", "MAPPER_KINDS",
 ]
 
 
@@ -267,6 +276,41 @@ def _load_image(dd: Dict) -> np.ndarray:
     return np.asarray(Image.open(dd["file_name"]).convert("RGB"))
 
 
+# geopurify_tpu/data/mappers.py:299
+class SemanticMapper:
+    """sem_seg -> per-category binary masks + classes (train)."""
+
+    def __init__(self, ignore_label: int = 255, size_divisibility: int = -1,
+                 min_sizes=(64,), max_size: int = 1333,
+                 flip_prob: float = 0.5):
+        self.ignore_label = ignore_label
+        self.size_divisibility = size_divisibility
+        self.tfm_gens = [ResizeShortestEdge(min_sizes, max_size),
+                         RandomFlip(flip_prob)]
+
+    def __call__(self, dataset_dict: Dict,
+                 rng: Optional[np.random.Generator] = None) -> Dict:
+        dd = copy.deepcopy(dataset_dict)
+        image = _load_image(dd)
+        sem = np.asarray(dd.pop("sem_seg_np")
+                         if "sem_seg_np" in dd
+                         else Image.open(dd.pop("sem_seg_file_name")))
+        image, sem, _ = apply_transform_gens(
+            self.tfm_gens, image, rng, seg=sem.astype(np.float64))
+        image = _pad_divisible(image, self.size_divisibility, 128)
+        sem = _pad_divisible(sem, self.size_divisibility,
+                             self.ignore_label).astype(np.int64)
+        dd["image"] = image
+        dd["sem_seg"] = sem
+        classes = np.unique(sem)
+        classes = classes[classes != self.ignore_label]
+        masks = np.stack([sem == c for c in classes]) if len(classes) else \
+            np.zeros((0,) + sem.shape, bool)
+        dd["instances"] = {"gt_classes": classes.astype(np.int64),
+                           "gt_masks": masks}
+        return dd
+
+
 # geopurify_tpu/data/mappers.py:333
 class PanopticMapper:
     """pan_seg (RGB label-divisor raster) + segments_info -> per-segment
@@ -320,6 +364,42 @@ class PanopticMapper:
                  else np.zeros((0,) + pan_id.shape, bool))
         dd["instances"] = {
             "gt_classes": np.asarray(classes, np.int64),
+            "gt_masks": masks,
+            "gt_boxes": _masks_to_boxes(masks),
+        }
+        return dd
+
+
+# geopurify_tpu/data/mappers.py:391
+class InstanceMapper:
+    """COCO-style annotations (polygon/RLE/array segmentations) ->
+    instances; iscrowd filtered; boxes from masks."""
+
+    def __init__(self, size_divisibility: int = -1, min_sizes=(64,),
+                 max_size: int = 1333):
+        self.size_divisibility = size_divisibility
+        self.tfm_gens = [ResizeShortestEdge(min_sizes, max_size),
+                         RandomFlip()]
+
+    def __call__(self, dataset_dict: Dict,
+                 rng: Optional[np.random.Generator] = None) -> Dict:
+        dd = copy.deepcopy(dataset_dict)
+        image = _load_image(dd)
+        hw0 = image.shape[:2]
+        annos = [a for a in dd.pop("annotations")
+                 if not a.get("iscrowd", 0)]
+        masks0 = [_decode_segm(a["segmentation"], hw0) for a in annos]
+        image, _, applied = apply_transform_gens(self.tfm_gens, image, rng)
+        masks = [_apply_to_seg(applied, m.astype(np.float64)) > 0.5
+                 for m in masks0]
+        image = _pad_divisible(image, self.size_divisibility, 128)
+        masks = [_pad_divisible(m, self.size_divisibility, 0) for m in masks]
+        masks = (np.stack(masks) if masks
+                 else np.zeros((0,) + image.shape[:2], bool))
+        dd["image"] = image
+        dd["instances"] = {
+            "gt_classes": np.asarray(
+                [int(a["category_id"]) for a in annos], np.int64),
             "gt_masks": masks,
             "gt_boxes": _masks_to_boxes(masks),
         }
@@ -417,6 +497,57 @@ class InteractiveMapper:
         return dd
 
 
+# geopurify_tpu/data/mappers.py:516
+class RefCOCOMapper:
+    """grounding_info -> referring masks + sentences. Train: large-scale
+    jitter + ONE random sentence per annotation; eval: all sentences,
+    un-transformed masks (≙ refcoco_dataset_mapper.py:139-201)."""
+
+    def __init__(self, is_train: bool = True, image_size: int = 64,
+                 min_scale: float = 0.1, max_scale: float = 2.0,
+                 min_size_test: int = 64, max_size_test: int = 1333):
+        self.is_train = is_train
+        if is_train:
+            self.tfm_gens = [
+                RandomFlip(),
+                ResizeScaleAug(min_scale, max_scale, image_size, image_size),
+                FixedSizeCrop((image_size, image_size)),
+            ]
+        else:
+            self.tfm_gens = [ResizeShortestEdge([min_size_test],
+                                                max_size_test)]
+
+    def __call__(self, dataset_dict: Dict,
+                 rng: Optional[np.random.Generator] = None) -> Dict:
+        rng = rng if rng is not None else np.random.default_rng(0)
+        dd = copy.deepcopy(dataset_dict)
+        image = _load_image(dd)
+        hw0 = (dd["height"], dd["width"])
+        image, _, applied = apply_transform_gens(self.tfm_gens, image, rng)
+        dd["image"] = image
+        gi = dd["grounding_info"]
+        assert len(gi) > 0
+        masks, texts, hashes, boxes = [], [], [], []
+        for ann in gi:
+            m = _decode_segm(ann["segmentation"], hw0)
+            if self.is_train:
+                m = _apply_to_seg(applied, m.astype(np.float64)) > 0.5
+                sent = ann["sentences"][int(rng.integers(len(ann["sentences"])))]
+                texts.append(sent["raw"].lower())
+                hashes.append(hash(sent["raw"].lower()))
+            else:
+                texts.append([s["raw"].lower() for s in ann["sentences"]])
+                boxes.append(ann.get("bbox", [0, 0, 0, 0]))
+            masks.append(m)
+        g = {"masks": np.stack(masks), "texts": texts}
+        if self.is_train:
+            g.update(hash=hashes, mode="text")
+        else:
+            g.update(boxes=np.asarray(boxes, np.float32))
+        dd["groundings"] = g
+        return dd
+
+
 # geopurify_tpu/data/mappers.py:566
 class VLPMapper:
     """Square resize + caption tokenization (input_ids/attention_mask)."""
@@ -439,3 +570,167 @@ class VLPMapper:
             dd["tokens"] = {"input_ids": ids[:, : self.max_token_num],
                             "attention_mask": attn[:, : self.max_token_num]}
         return dd
+
+
+# geopurify_tpu/data/mappers.py:589
+class EvalSemSegMapper:
+    """Eval-only: bicubic shortest-edge resize of the IMAGE, semseg kept at
+    native resolution (≙ bdd/scannet/sunrgbd mappers — predictions are
+    upsampled back to gt size by the evaluator)."""
+
+    def __init__(self, min_size_test: int = 64):
+        self.min_size_test = min_size_test
+
+    def _resize_shortest_bicubic(self, image: np.ndarray) -> np.ndarray:
+        h, w = image.shape[:2]
+        s = self.min_size_test / min(h, w)
+        return _resize_image(image, (int(round(h * s)), int(round(w * s))),
+                             resample=Image.BICUBIC)
+
+    def __call__(self, dataset_dict: Dict,
+                 rng: Optional[np.random.Generator] = None) -> Dict:
+        dd = copy.deepcopy(dataset_dict)
+        image = _load_image(dd)
+        dd["height"], dd["width"] = image.shape[:2]
+        dd["image"] = self._resize_shortest_bicubic(image)
+        sem = np.asarray(dd["sem_seg_np"] if "sem_seg_np" in dd
+                         else Image.open(dd["sem_seg_file_name"]))
+        dd["semseg"] = sem.astype(np.int32)
+        return dd
+
+
+# geopurify_tpu/data/mappers.py:615
+class PanoEvalMapper:
+    """Eval-only panoptic: bicubic image resize; pan_seg decoded to ids at
+    native resolution (≙ scannet_pano_dataset_mapper.py)."""
+
+    def __init__(self, min_size_test: int = 64):
+        self.base = EvalSemSegMapper(min_size_test)
+
+    def __call__(self, dataset_dict: Dict,
+                 rng: Optional[np.random.Generator] = None) -> Dict:
+        dd = copy.deepcopy(dataset_dict)
+        image = _load_image(dd)
+        dd["height"], dd["width"] = image.shape[:2]
+        dd["image"] = self.base._resize_shortest_bicubic(image)
+        if "pan_seg_np" in dd or "pan_seg_file_name" in dd:
+            pan_rgb = np.asarray(dd.pop("pan_seg_np") if "pan_seg_np" in dd
+                                 else Image.open(dd.pop("pan_seg_file_name")))
+            dd["pan_seg"] = rgb2id(pan_rgb)
+        return dd
+
+
+# geopurify_tpu/data/mappers.py:635
+class ImageNetMapper:
+    """Eval-only classification: bicubic resize + center crop."""
+
+    def __init__(self, size_crop: int = 64, size_test: int = 56):
+        self.size_crop = size_crop
+        self.size_test = size_test
+
+    def __call__(self, dataset_dict: Dict,
+                 rng: Optional[np.random.Generator] = None) -> Dict:
+        dd = copy.deepcopy(dataset_dict)
+        image = _load_image(dd)
+        h, w = image.shape[:2]
+        s = self.size_crop / min(h, w)
+        image = _resize_image(image, (int(round(h * s)), int(round(w * s))),
+                              resample=Image.BICUBIC)
+        h, w = image.shape[:2]
+        y0 = (h - self.size_test) // 2
+        x0 = (w - self.size_test) // 2
+        dd["image"] = image[y0: y0 + self.size_test, x0: x0 + self.size_test]
+        dd["height"], dd["width"] = dd["image"].shape[:2]
+        return dd
+
+
+# geopurify_tpu/data/mappers.py:658
+class PascalVOCIXMapper:
+    """Eval-only interactive: per-object masks from an id raster, bicubic
+    image resize, shape-sampler prompts, prompted class names, ignore -> -1
+    originals (≙ pascalvoc_dataset_mapper_ix.py:133-183)."""
+
+    def __init__(self, min_size_test: int = 64, ignore_id: int = 255,
+                 sampler_cfg: Optional[StrokeSamplerConfig] = None,
+                 mode: Optional[str] = None,
+                 class_names: Optional[Sequence[str]] = None):
+        self.base = EvalSemSegMapper(min_size_test)
+        self.ignore_id = ignore_id
+        cfg = sampler_cfg or StrokeSamplerConfig(eval_mode="random")
+        from geopurify_tpu_torch.data.visual_sampler import build_shape_sampler
+
+        self.shape_sampler = build_shape_sampler(cfg, is_train=False,
+                                                 mode=mode)
+        self.class_names = list(class_names) if class_names else None
+
+    def __call__(self, dataset_dict: Dict,
+                 rng: Optional[np.random.Generator] = None) -> Dict:
+        rng = rng if rng is not None else np.random.default_rng(0)
+        dd = copy.deepcopy(dataset_dict)
+        image = _load_image(dd)
+        dd["height"], dd["width"] = image.shape[:2]
+        image = self.base._resize_shortest_bicubic(image)
+        dd["image"] = image
+        inst_raster = np.asarray(dd["inst_np"] if "inst_np" in dd
+                                 else Image.open(dd["inst_name"]))
+        ids = dd["objects_ids"]
+        by_id0 = [(inst_raster == i) for i in ids]
+        h, w = image.shape[:2]
+        masks = np.stack([
+            _resize_image(m.astype(np.uint8) * 255, (h, w),
+                          resample=Image.BICUBIC) > 127
+            for m in by_id0])
+        boxes = _masks_to_boxes(masks)
+        dd["instances"] = {"gt_masks": masks, "gt_boxes": boxes}
+        dd["spatial_query"] = self.shape_sampler(masks, boxes,
+                                                 draws=Draws(rng))
+        sem = np.asarray(dd["semseg_np"] if "semseg_np" in dd
+                         else Image.open(dd["semseg_name"]))
+        gt_ori = np.stack([m.astype(np.int16) for m in by_id0])
+        gt_ori[:, inst_raster == self.ignore_id] = -1
+        dd["gt_masks_orisize"] = gt_ori
+        if self.class_names:
+            names = []
+            for m in by_id0:
+                cls = np.unique(sem[m])
+                cls = cls[(cls > 0) & (cls != self.ignore_id)]
+                names.append(self.class_names[int(cls[0]) - 1]
+                             if len(cls) else "background")
+            from geopurify_tpu_torch.models.lang import PROMPT_TEMPLATES
+
+            dd["classes"] = [PROMPT_TEMPLATES[0].format(n) for n in names]
+        return dd
+
+
+# ---------------------------------------------------------------------------
+# Dispatch by the registry catalog's mapper kinds
+# ---------------------------------------------------------------------------
+
+# geopurify_tpu/data/mappers.py:719
+MAPPER_KINDS: Dict[str, Callable] = {
+    "mask_former_semantic_dataset_mapper": SemanticMapper,
+    "mask_former_panoptic_dataset_mapper": PanopticMapper,
+    "mask_former_instance_dataset_mapper": InstanceMapper,
+    "coco_instance_new_baseline_dataset_mapper": InstanceMapper,
+    "coco_panoptic_new_baseline_dataset_mapper":
+        lambda **kw: PanopticMapper(mode="new_baseline", **kw),
+    "coco_panoptic_interactive_dataset_mapper": InteractiveMapper,
+    "refcoco_dataset_mapper": RefCOCOMapper,
+    "vlp_dataset_mapper": VLPMapper,
+    "bdd_semseg_dataset_mapper": EvalSemSegMapper,
+    "scannet_dataset_mapper": EvalSemSegMapper,
+    "sunrgbd_dataset_mapper": EvalSemSegMapper,
+    "scannet_pano_dataset_mapper": PanoEvalMapper,
+    "imagenet_dataset_mapper": ImageNetMapper,
+    "pascalvoc_dataset_mapper_ix": PascalVOCIXMapper,
+}
+
+
+# geopurify_tpu/data/mappers.py:738
+def build_mapper(kind: str, **kwargs):
+    """Mapper dispatch by the registry catalog's mapper-kind string
+    (data/registry_catalog.py `mapper` field)."""
+    if kind not in MAPPER_KINDS:
+        raise KeyError(
+            f"unknown mapper kind {kind!r}; known: {sorted(MAPPER_KINDS)}")
+    return MAPPER_KINDS[kind](**kwargs)

@@ -3,10 +3,14 @@
 Port of geopurify_tpu/models/xdecoder.py: 201 learned queries, 3-level
 memory with level embeddings and sine PE, ``dec_layers`` rounds of masked
 cross-attention -> structured self-attention -> FFN, and per-round
-prediction heads. Only the default inference order (``return_aux=False``,
-xdecoder.py:138-149,176-178) is ported: the mask features are resized to
-the three memory sizes once, and each round's attention mask is the mask
-einsum at the target size, thresholded at sigmoid < 0.5. With
+prediction heads. In the default inference order (``return_aux=False``,
+xdecoder.py:138-149,176-178) the mask features are resized to the three
+memory sizes once, and each round's attention mask is the mask einsum at
+the target size, thresholded at sigmoid < 0.5. ``return_aux=True`` keeps
+the reference-shaped order (the mask einsum at stride 4, then each round's
+resize to its target size) and returns every round's stride-4 masks and
+binary attention masks (``aux_masks``, ``aux_attn``; xdecoder.py:257-259);
+the two orders differ by float reassociation only. With
 ``caption_tokens`` (the captioning task) the caption slots join the
 queries through the structured mask's causal block. The backbone is
 FocalNet (``focal`` or ``focal_dw``), DaViT or ViT, and the pixel decoder
@@ -101,6 +105,7 @@ class XDecoderHead(nn.Module):
         caption_tokens: Optional[torch.Tensor] = None,   # [B, T, C]
         attn_mask_override: Optional[List[torch.Tensor]] = None,
         return_attn: bool = False,
+        return_aux: bool = False,
     ) -> Dict[str, torch.Tensor]:
         """``caption_tokens`` (the language tower's token embeddings) add
         ``pred_captionings`` [B, T, dim_proj] and ``pred_captions`` [B, Q,
@@ -109,7 +114,10 @@ class XDecoderHead(nn.Module):
         ``return_attn`` returns the masks the rounds computed under
         ``attn_masks`` (and round 0's pre-threshold logits under
         ``attn_logits0``) — instrumentation for holding the port against JAX
-        on the same binarized masks."""
+        on the same binarized masks. ``return_aux`` takes the
+        reference-shaped order and adds ``aux_masks`` (dec_layers + 1 x [B, Q,
+        H4, W4]) and ``aux_attn`` (dec_layers + 1 x [B, 1, Q+T, HW_level]
+        bool) as the JAX head does (xdecoder.py:138-149, 257-259)."""
         dt = self.dtype
         B = mask_features.shape[0]
         Q, C = self.num_queries, self.hidden_dim
@@ -127,7 +135,8 @@ class XDecoderHead(nn.Module):
         self_mask = torch.from_numpy(_structured_self_attn_mask(Q, T)).to(dev)[None, None]
         mf = mask_features.to(torch.float32)
         text_t = text_embeddings.to(torch.float32)
-        mf_small = [resize_bicubic_antialias(mf, s) for s in sizes]
+        if not return_aux:
+            mf_small = [resize_bicubic_antialias(mf, s) for s in sizes]
 
         def prediction_heads(output, level: int, want_full: bool):
             dec_all = self.decoder_norm(output)                    # f32 [B, Q+T, C]
@@ -144,8 +153,14 @@ class XDecoderHead(nn.Module):
             outputs_class = logit_scale * torch.einsum("bqd,nd->bqn", v, text_t)
             m_emb = self.mask_embed(dec_out.to(dt)).to(torch.float32)
             outputs_mask = (torch.einsum("bqc,bhwc->bqhw", m_emb, mf)
-                            if want_full else None)
-            logits = torch.einsum("bqc,bhwc->bqhw", m_emb, mf_small[level])
+                            if want_full or return_aux else None)
+            if return_aux:
+                # the stride-4 masks resized to the target scale
+                logits = resize_bicubic_antialias(outputs_mask.permute(0, 2, 3, 1),
+                                                  sizes[level]).permute(0, 3, 1, 2)
+            else:
+                # the commuted form: the einsum straight at the target scale
+                logits = torch.einsum("bqc,bhwc->bqhw", m_emb, mf_small[level])
             am = torch.sigmoid(logits).reshape(B, Q, -1) < 0.5        # True = block
             am = am & ~am.all(dim=-1, keepdim=True)
             if T:
@@ -164,7 +179,7 @@ class XDecoderHead(nn.Module):
         num_levels = len(multi_scale)
         outputs_class, outputs_mask, class_embed, capt, am, logits0 = prediction_heads(
             output, 0, want_full=self.dec_layers == 0)
-        attn = [am]
+        attn, aux_masks = [am], [outputs_mask]
         for i in range(self.dec_layers):
             level = i % num_levels
             if attn_mask_override is not None:
@@ -178,6 +193,7 @@ class XDecoderHead(nn.Module):
             outputs_class, outputs_mask, class_embed, capt, am, _ = prediction_heads(
                 output, (i + 1) % num_levels, want_full=i == self.dec_layers - 1)
             attn.append(am)
+            aux_masks.append(outputs_mask)
         out = {
             "pred_logits": outputs_class[:, : Q - 1],
             "pred_masks": outputs_mask[:, : Q - 1],
@@ -191,6 +207,9 @@ class XDecoderHead(nn.Module):
         if return_attn:
             out["attn_masks"] = attn
             out["attn_logits0"] = logits0          # round 0, pre-threshold
+        if return_aux:
+            out["aux_masks"] = aux_masks
+            out["aux_attn"] = [a[:, None] for a in attn]
         return out
 
 

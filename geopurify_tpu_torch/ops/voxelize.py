@@ -2,11 +2,16 @@
 scenes, and the static-shape device path of the Sonata teacher's grid
 pooling.
 
-Port of geopurify_tpu/ops/voxelize.py. The host path (numpy) dedups
-floored coordinates by their FNV-1a 64-bit hash, first occurrence per voxel
-(the reference's ``sparse_quantize``); the device path sorts by (valid
-first, x, y, z) and numbers voxels in that order, so voxels come out
-lexicographically sorted, as the sparse-conv neighbour table needs.
+Port of geopurify_tpu/ops/voxelize.py. The host path dedups floored
+coordinates by their FNV-1a 64-bit hash (or, with ``hash_type="ravel"``,
+their collision-free raveled key), first occurrence per voxel (the
+reference's ``sparse_quantize``), in numpy. Here the port departs from
+JAX, whose FNV dedup of non-negative coordinates takes its host C++
+library: the port's copy of that route (``native.fnv_voxelize``, bit-equal)
+was measured slower than numpy's on an H100 host (PERF.md, chip_smoke.py
+phase 18), so the loader keeps one route. The device path sorts by
+(valid first, x, y, z) and numbers voxels in that order, so voxels come
+out lexicographically sorted, as the sparse-conv neighbour table needs.
 """
 
 from __future__ import annotations
@@ -31,12 +36,31 @@ def fnv_hash_vec(arr: np.ndarray) -> np.ndarray:
     return hashed
 
 
+# geopurify_tpu/ops/voxelize.py:42
+def ravel_hash_vec(arr: np.ndarray) -> np.ndarray:
+    """Collision-free raveled key per row, after shifting each column's
+    minimum to 0."""
+    arr = arr.copy()
+    arr -= arr.min(0)
+    arr = arr.astype(np.uint64, copy=False)
+    arr_max = arr.max(0).astype(np.uint64) + 1
+    keys = np.zeros(arr.shape[0], dtype=np.uint64)
+    for j in range(arr.shape[1] - 1):
+        keys += arr[:, j]
+        keys *= arr_max[j + 1]
+    keys += arr[:, -1]
+    return keys
+
+
 # geopurify_tpu/ops/voxelize.py:57
-def sparse_quantize_np(coords: np.ndarray, quantization_size: float = 1.0
-                       ) -> Tuple[np.ndarray, np.ndarray]:
+def sparse_quantize_np(coords: np.ndarray, quantization_size: float = 1.0,
+                       hash_type: str = "fnv") -> Tuple[np.ndarray, np.ndarray]:
     """(inds, inds_reverse): one representative point per voxel (first
-    occurrence, ascending hash order) and every point's voxel id."""
-    key = fnv_hash_vec(np.floor(coords / quantization_size))
+    occurrence, ascending key order) and every point's voxel id."""
+    if hash_type not in ("fnv", "ravel"):
+        raise ValueError(f"hash_type must be 'fnv' or 'ravel', got {hash_type!r}")
+    discrete = np.floor(coords / quantization_size)
+    key = fnv_hash_vec(discrete) if hash_type == "fnv" else ravel_hash_vec(discrete)
     _, inds, inds_reverse = np.unique(key, return_index=True, return_inverse=True)
     return inds, inds_reverse.reshape(-1)
 
