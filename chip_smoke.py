@@ -165,6 +165,16 @@ Phases (any failure exits non-zero; each prints its seconds):
    (bf16; status and worst rel recorded, a ``FLAG:`` line when above the
    tool's 5e-2 limit) and with ``--dtype float32`` (TF32 off), which
    must exit 0.
+19. the bench entry point ``python -m geopurify_tpu_torch.run.bench``, a
+   process a run: the default (8 scenes), ``--profile-stages`` (the stage
+   split and ``mfu_table``), ``--views 64``, ``--preset-scale``,
+   ``--resident``, ``--prefetch-h2d``, ``--stage1 --profile-stages``,
+   ``--view-parallel 2`` (two gloo ranks on the card) and ``--smoke
+   --stage1`` (8 gloo ranks on the host's CPU): exactly one JSON line on
+   stdout with the mode's metric and a finite positive value, the K1 / K2
+   launches its stderr reports (``bench_launches``), each run's stderr
+   echoed; the default run's seconds a scene against phase 3's steady ones
+   (a ``FLAG:`` line beyond 15%).
 
 A K1 row at a preset's class count (or feature space's 512) that is
 slower than its library call is flagged (``FLAG:`` lines naming the preset,
@@ -188,6 +198,16 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from geopurify_tpu_torch.ops.band import banded_window_matmul_work
+from geopurify_tpu_torch.ops.infonce import info_nce_work
+from geopurify_tpu_torch.utils.seeding import (
+    query_prompts,
+    seed_lecun,
+    seed_student,
+    seed_weights,
+    text_embeddings,
+)
 
 HERE = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 peak memory rate
@@ -233,8 +253,7 @@ def k1_inputs(M: int, band: int, C: int, row_tile: int, seed: int):
 
 
 def k1_bound_ms(R: int, M: int, band: int, C: int, n_t: int):
-    bytes_ = R * band * 2 + M * C * 2 + n_t * 4 + R * C * 4
-    flops = 2.0 * R * band * C
+    flops, bytes_ = banded_window_matmul_work(R, M, band, C, n_t)
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -283,30 +302,6 @@ def phase_k1(band_mod, M=65536, band=12288):
 # phase 3: the main path at full width
 # ---------------------------------------------------------------------------
 
-def seed_weights(pipe, seed: int, device):
-    """bench.py's teacher recipe (N(0, 1) x 0.02 for every parameter) and a
-    He-normal student with identity BatchNorm statistics, from a seed."""
-    g = torch.Generator(device=device).manual_seed(seed)
-    with torch.no_grad():
-        for p in pipe.xdecoder.parameters():
-            p.copy_(torch.randn(p.shape, generator=g, device=device) * 0.02)
-    seed_student(pipe, g, device)
-
-
-def seed_student(pipe, g: torch.Generator, device):
-    """He-normal student kernels from ``g``; biases and BatchNorm as built."""
-    with torch.no_grad():
-        for name, p in pipe.student.named_parameters():
-            if name.endswith("kernel"):
-                fan_in = p.shape[0] * p.shape[1]
-            elif name.endswith("output_conv.weight"):
-                fan_in = p.shape[1]
-            else:
-                continue
-            p.copy_(torch.randn(p.shape, generator=g, device=device)
-                    * (2.0 / fan_in) ** 0.5)
-
-
 def seed_released(pipe, seed: int, device):
     """Phase 3's recipe (N(0, 1) x 0.02) for the X-Decoder's weights and
     biases, but norm scales at 1 + N(0, 1) x 0.02: the 0.02 scales of
@@ -319,34 +314,6 @@ def seed_released(pipe, seed: int, device):
             r = torch.randn(p.shape, generator=g, device=device) * 0.02
             norm = p.dim() == 1 and name.endswith("weight") and "norm" in name
             p.copy_(1 + r if norm else r)
-
-
-def seed_lecun(pipe, seed: int, device):
-    """The X-Decoder's matrices N(0, 1 / fan-in), zero biases, unit norm
-    scales, from a seed."""
-    g = torch.Generator(device=device).manual_seed(seed)
-    with torch.no_grad():
-        for name, p in pipe.xdecoder.named_parameters():
-            if p.dim() >= 2:
-                p.copy_(torch.randn(p.shape, generator=g, device=device)
-                        / float(np.prod(p.shape[1:])) ** 0.5)
-            else:
-                p.fill_(0.0 if name.endswith("bias") else 1.0)
-
-
-def query_prompts(pipe, batch, seed: int):
-    """Class prompts for a seeded X-Decoder: the embeddings of the queries
-    that win the most points of ``batch``'s first view, one a class, and a
-    random background row. Random prompts all pick the one class nearest
-    the direction the seeded queries' embeddings share."""
-    n_cls = pipe.text_embeddings.shape[0] - 1
-    with torch.inference_mode():
-        lift = pipe._view_step(batch, 0)
-        table = lift.embed_table[0]                     # [Q + 1, C], L2-normed
-        Q = table.shape[0] - 1
-        top = torch.bincount(lift.winner[0].long(), minlength=Q + 1)[:Q].topk(n_cls).indices
-    bg = text_embeddings(1, table.shape[1], seed).to(table.device)
-    pipe.text_embeddings = torch.cat([table[top], bg])
 
 
 def seed_at_scale(logit_scale: float):
@@ -374,12 +341,6 @@ def seed_small(pipe, seed: int):
                     p.copy_(1 + 0.1 * r)
                 else:
                     p.copy_(0.35 * r)
-
-
-def text_embeddings(n: int, dim: int, seed: int):
-    g = torch.Generator().manual_seed(seed)
-    t = torch.randn((n, dim), generator=g)
-    return t / t.norm(dim=-1, keepdim=True)
 
 
 def phase_main(cfg_mod, pipe_mod, batch_mod, band_mod, pool_mod, n_scenes=3):
@@ -491,21 +452,12 @@ def profile_call(fn, label: str):
 # ---------------------------------------------------------------------------
 
 def smoke_config(cfg_mod):
-    cfg = cfg_mod.GeoPurifyConfig()
-    return dataclasses.replace(
-        cfg,
-        data=dataclasses.replace(cfg.data, all_label=tuple(f"c{i}" for i in range(4))),
-        student=cfg_mod.StudentConfig(input_dim=22, hidden_dim=16, embed_dim=8,
-                                      num_res_blocks=1),
-        pooling=cfg_mod.PoolingConfig(knn_k=8, num_iterations=3, feature_dim=16,
-                                      band=128),
-        xdecoder=cfg_mod.XDecoderConfig(
-            backbone=cfg_mod.FocalNetConfig(embed_dim=8, depths=(1, 1, 1, 1)),
-            hidden_dim=16, conv_dim=16, mask_dim=16, num_queries=5, nheads=2,
-            dim_feedforward=32, dec_layers=2, enc_layers=1,
-            mask_shape=(48, 64), dtype="float32",
-        ),
-    )
+    """The bench's --smoke config, smoothing banded (band 128 < M=256) so
+    that K1 runs on the card."""
+    from geopurify_tpu_torch.run.bench import smoke_config as bench_smoke
+
+    cfg = bench_smoke()
+    return dataclasses.replace(cfg, pooling=dataclasses.replace(cfg.pooling, band=128))
 
 
 def phase_small(cfg_mod, pipe_mod, batch_mod, band_mod):
@@ -560,13 +512,8 @@ def k2_inputs(A: int, NEG: int, E: int, seed: int, p_valid: float):
 
 
 def k2_bound_ms(A: int, NEG: int, E: int, backward: bool):
-    """Each input read once and each output written once: a, p, n f32 and
-    valid bool in; the per-anchor loss out (forward), or g in and da, dp,
-    dn out (backward). Operations: ~4 E flops a row for its norm and its dot
-    with the anchor (NEG + 2 rows), ~3x that backward, at the f32 rate."""
-    emb = 4 * (2 * A * E + A * NEG * E)
-    bytes_ = emb + A + (4 * A + emb if backward else 4 * A)
-    flops = 4.0 * E * (NEG + 2) * A * (3 if backward else 1)
+    """``info_nce_work``'s bytes and operations, the latter at the f32 rate."""
+    flops, bytes_ = info_nce_work(A, NEG, E, backward)
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -3553,6 +3500,84 @@ def phase_prep(mods, n_vertices=150_000, n_frames=400):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the bench entry point
+# ---------------------------------------------------------------------------
+
+# (label, flags, metric) of each run of ``python -m geopurify_tpu_torch.run.bench``
+BENCH_RUNS = (
+    ("default", ["--scenes", "8"], "stage2_scenes_per_sec"),
+    ("profile", ["--profile-stages", "--scenes", "2"], "stage2_scenes_per_sec"),
+    ("views64", ["--views", "64", "--scenes", "2"], "stage2_scenes_per_sec_v64"),
+    ("preset", ["--preset-scale", "--scenes", "2"], "stage2_scenes_per_sec_preset_scale"),
+    ("resident", ["--resident", "--scenes", "4"], "stage2_scenes_per_sec"),
+    ("prefetch", ["--prefetch-h2d", "--scenes", "4"], "stage2_scenes_per_sec"),
+    ("stage1", ["--stage1", "--profile-stages", "--scenes", "5"], "stage1_steps_per_sec"),
+    ("view_parallel", ["--view-parallel", "2", "--scenes", "2"], "stage2_scenes_per_sec"),
+    # the 8 data-parallel gloo ranks on this host's CPU (the CPU tests skip it)
+    ("stage1_smoke", ["--smoke", "--stage1", "--scenes", "2"], "stage1_steps_per_sec"),
+)
+
+
+def bench_launches(flags) -> dict:
+    """The kernels' launches a bench run must report: K1 19 times a pass of
+    the smoothing (the warm-up, with --profile-stages two timed passes and
+    one counted by ``compiled_costs``, each timed scene; rank 0's under
+    --view-parallel); K2 forward and backward once a Stage-1 step (the
+    warm-up, each timed step, with --profile-stages 5 timed forward +
+    backward passes); none on the CPU."""
+    n = int(flags[flags.index("--scenes") + 1])
+    profile = "--profile-stages" in flags
+    if "--smoke" in flags:
+        return dict(banded_window_matmul=0, info_nce_fwd=0, info_nce_bwd=0)
+    if "--stage1" in flags:
+        steps = 1 + n + (5 if profile else 0)
+        return dict(banded_window_matmul=0, info_nce_fwd=steps, info_nce_bwd=steps)
+    return dict(banded_window_matmul=19 * (1 + (3 if profile else 0) + n),
+                info_nce_fwd=0, info_nce_bwd=0)
+
+
+def phase_bench(main_rec=None, timeout_s=300):
+    """Each bench mode as a user runs it, in a process of its own: exactly one
+    JSON line on stdout with the mode's metric, a finite positive value,
+    the launch counts its stderr reports; the default run against phase 3's
+    steady seconds a scene (a FLAG: line beyond 15%)."""
+    runs = {}
+    for label, flags, metric in BENCH_RUNS:
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "geopurify_tpu_torch.run.bench", *flags],
+                              cwd=HERE, capture_output=True, text=True, timeout=timeout_s)
+        wall = time.perf_counter() - t
+        err = proc.stderr.splitlines()
+        assert proc.returncode == 0, f"bench {label} exited {proc.returncode}:\n" + \
+            "\n".join(err[-30:])
+        lines = proc.stdout.splitlines()
+        assert len(lines) == 1, f"bench {label}: stdout is not one line: {proc.stdout!r}"
+        rec = json.loads(lines[0])
+        launches = json.loads([x for x in err if x.startswith("launches: ")][-1][10:])
+        log(f"bench {label} ({' '.join(flags)}): {lines[0]} in {wall:.1f} s")
+        for x in err:
+            log(f"  | {x}")
+        assert rec["metric"] == metric and set(rec) == {"metric", "value", "unit",
+                                                          "vs_baseline"}, rec
+        assert np.isfinite(rec["value"]) and rec["value"] > 0, rec
+        assert (rec["vs_baseline"] is None) == (metric == "stage1_steps_per_sec"), rec
+        want = bench_launches(flags)
+        assert launches == want, f"bench {label}: launches {launches}, expected {want}"
+        runs[label] = dict(flags=flags, result=rec, launches=launches, wall_s=wall,
+                           stderr=err)
+    if main_rec is not None:
+        bench_s = 1.0 / runs["default"]["result"]["value"]
+        steady = main_rec["seconds_per_scene_steady"]
+        gap = abs(bench_s - steady) / steady
+        log(f"bench default {bench_s:.3f} s a scene against phase 3's steady "
+            f"{steady:.3f} s ({gap:.1%} apart)")
+        if gap > 0.15:
+            log(f"FLAG: bench default run {bench_s:.3f} s a scene, {gap:.1%} from "
+                f"phase 3's {steady:.3f} s")
+    return runs
+
+
 def load_mods():
     """The port's modules by short name (the rank processes of phase 13
     import them anew)."""
@@ -3656,6 +3681,7 @@ def main() -> int:
     interactive = run("16 the interactive path", phase_interactive, mods)
     train2d = run("17 the 2D trainer", phase_train2d, mods)
     prep = run("18 the data-preparation path", phase_prep, mods)
+    bench = run("19 the bench", phase_bench, main_rec)
 
     # K1 at every shape a main path launched it: the bench-spec scenes
     # (phase 3), the scannet, scannet200 and feature-space preset-scale
@@ -3696,6 +3722,15 @@ def main() -> int:
                              "preprocessed scene]",
                         launches=prep["launches"][0], **k1_base,
                         **k1_wide[(1 << 18, 6144, 19)]))
+    # phase 19's bench runs: the bench-spec modes (rank 0's under
+    # --view-parallel) and the preset-scale one
+    k1_rows.append(dict(name="banded_window_matmul[run.bench]", launches=sum(
+        r["launches"]["banded_window_matmul"] for label, r in bench.items()
+        if label != "preset"), **k1_base, **k1[19]))
+    k1_rows.append(dict(name="banded_window_matmul[M=262144,band=6144,C=19;"
+                             "run.bench --preset-scale]",
+                        launches=bench["preset"]["launches"]["banded_window_matmul"],
+                        **k1_base, **k1_wide[(1 << 18, 6144, 19)]))
     # phase 6's step, phase 12's run.train.main over on-disk scenes and
     # phase 13's data-parallel steps (the same A=4096, NEG=63, E=128 shape)
     k2_rows = [dict(name=label, route="cuda", source="geopurify_tpu_torch/csrc/infonce.cu",
@@ -3711,14 +3746,18 @@ def main() -> int:
                    ("info_nce_fwd", "info_nce_fwd[data-parallel, 2 ranks]", 128,
                     parallel["k2_launches"][0]),
                    ("info_nce_bwd", "info_nce_bwd[data-parallel, 2 ranks]", 146,
-                    parallel["k2_launches"][1]))]
+                    parallel["k2_launches"][1]),
+                   ("info_nce_fwd", "info_nce_fwd[run.bench --stage1]", 128,
+                    bench["stage1"]["launches"]["info_nce_fwd"]),
+                   ("info_nce_bwd", "info_nce_bwd[run.bench --stage1]", 146,
+                    bench["stage1"]["launches"]["info_nce_bwd"]))]
     record = dict(card=smi, phase_seconds=phase_s, k1=k1, main=main_rec, small=small,
                   k2=k2, stage1=stage1, train_main=train_rec, stage1_small=stage1_small,
                   k1_wide={str(k): v for k, v in k1_wide.items()},
                   k1_behind_library=k1_behind, preset=preset,
                   validation_small=val_small, released=released, parallel=parallel,
                   grid_search=grid, two_d=two_d, interactive=interactive, train2d=train2d,
-                  prep=prep)
+                  prep=prep, bench=bench)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))

@@ -21,6 +21,8 @@ from typing import NamedTuple
 
 import torch
 
+from geopurify_tpu_torch.utils.profiling import hand_kernel
+
 _KERNEL_ROWS = 128        # rows a block, and the output's row padding
 _MAX_COLS = 512
 _WMMA_COLS = 32           # C <= 32: the WMMA kernel, one block per 128 rows
@@ -83,14 +85,29 @@ def banded_window_matmul_ref(S: torch.Tensor, starts: torch.Tensor,
     return out.reshape(Rp, -1)[:R]
 
 
+def banded_window_matmul_work(R: int, M: int, band: int, C: int, n_t: int):
+    """(operations, bytes) of one call: 2 R band C multiply-adds; S [R, band]
+    and F [M, C] bf16 and the n_t int32 starts read once, out [R, C] f32
+    written once."""
+    return 2.0 * R * band * C, R * band * 2 + M * C * 2 + n_t * 4 + R * C * 4
+
+
 def banded_window_matmul(S: torch.Tensor, starts: torch.Tensor,
                          f: torch.Tensor, band: int,
                          row_tile: int = 2048) -> torch.Tensor:
     """``out[R, C]`` f32. ``S`` [R, band] bf16, ``starts`` [ceil(R/row_tile)]
     int32 (the banded operator keeps each a multiple of 8 with
-    start + band <= M), ``f`` [M, C] bf16 with C <= 512."""
-    if not S.is_cuda:
-        return banded_window_matmul_ref(S, starts, f, band, row_tile)
+    start + band <= M), ``f`` [M, C] bf16 with C <= 512. Under
+    ``utils.profiling.compiled_costs`` it counts
+    ``banded_window_matmul_work`` on either route."""
+    R, (M, C) = S.shape[0], f.shape
+    with hand_kernel(*banded_window_matmul_work(R, M, band, C, -(-R // row_tile))):
+        if not S.is_cuda:
+            return banded_window_matmul_ref(S, starts, f, band, row_tile)
+        return _launch(S, starts, f, band, row_tile)
+
+
+def _launch(S, starts, f, band: int, row_tile: int) -> torch.Tensor:
     R, C = S.shape[0], f.shape[1]
     M = f.shape[0]
     if S.dtype != torch.bfloat16 or f.dtype != torch.bfloat16:

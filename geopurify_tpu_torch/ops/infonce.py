@@ -19,6 +19,8 @@ import ctypes
 
 import torch
 
+from geopurify_tpu_torch.utils.profiling import hand_kernel
+
 _EPS = 1e-12
 _MAX_E = 128              # the kernel keeps at most 4 floats a lane
 
@@ -90,11 +92,29 @@ def _check(a, p, n, valid, extra=()):
     return A, n.shape[1], E, int(vec)
 
 
+def info_nce_work(A: int, NEG: int, E: int, backward: bool):
+    """(operations, bytes) of one kernel call. Each input read once and each
+    output written once: a, p, n f32 and valid bool in; the per-anchor loss
+    out (forward), or g in and da, dp, dn out (backward). Operations: ~4 E
+    flops a row for its norm and its dot with the anchor (NEG + 2 rows),
+    ~3x that backward."""
+    emb = 4 * (2 * A * E + A * NEG * E)
+    bytes_ = emb + A + (4 * A + emb if backward else 4 * A)
+    return 4.0 * E * (NEG + 2) * A * (3 if backward else 1), bytes_
+
+
 def info_nce_fwd(a, p, n, valid, temperature: float) -> torch.Tensor:
     """Per-anchor loss [A] f32 (the forward kernel). ``a``, ``p`` [A, E],
-    ``n`` [A, NEG, E] f32 contiguous, ``valid`` [A] bool."""
-    if not a.is_cuda:
-        return per_anchor_loss_ref(a, p, n, valid, temperature)
+    ``n`` [A, NEG, E] f32 contiguous, ``valid`` [A] bool. Under
+    ``utils.profiling.compiled_costs`` it counts ``info_nce_work`` on
+    either route."""
+    with hand_kernel(*info_nce_work(a.shape[0], n.shape[1], a.shape[-1], False)):
+        if not a.is_cuda:
+            return per_anchor_loss_ref(a, p, n, valid, temperature)
+        return _fwd_launch(a, p, n, valid, temperature)
+
+
+def _fwd_launch(a, p, n, valid, temperature: float) -> torch.Tensor:
     A, NEG, E, vec = _check(a, p, n, valid)
     v = valid.to(torch.float32).contiguous()
     per = torch.empty((A,), dtype=torch.float32, device=a.device)
@@ -111,8 +131,13 @@ def info_nce_fwd(a, p, n, valid, temperature: float) -> torch.Tensor:
 def info_nce_bwd(a, p, n, valid, temperature: float, g):
     """(da, dp, dn) f32 (the backward kernel) of ``sum_i g[i] * per[i]``;
     ``g`` [A] f32."""
-    if not a.is_cuda:
-        return per_anchor_grads_ref(a, p, n, valid, temperature, g)
+    with hand_kernel(*info_nce_work(a.shape[0], n.shape[1], a.shape[-1], True)):
+        if not a.is_cuda:
+            return per_anchor_grads_ref(a, p, n, valid, temperature, g)
+        return _bwd_launch(a, p, n, valid, temperature, g)
+
+
+def _bwd_launch(a, p, n, valid, temperature: float, g):
     A, NEG, E, vec = _check(a, p, n, valid, (("g", g),))
     if g.shape != (A,):
         raise ValueError(f"g must be [{A}], got {tuple(g.shape)}")
