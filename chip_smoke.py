@@ -175,6 +175,13 @@ Phases (any failure exits non-zero; each prints its seconds):
    launches its stderr reports (``bench_launches``), each run's stderr
    echoed; the default run's seconds a scene against phase 3's steady ones
    (a ``FLAG:`` line beyond 15%).
+20. the reference-oracle harness, which launches neither kernel (both
+   counts read 0): ``run.parity.main --torch-oracle small --stages
+   sonata --device cuda`` (the port's SonataTeacher on the card in f32,
+   TF32 off, against the naive numpy Sonata: exit 0, both rows within
+   1e-5, TF32 put back), then ``--stages focalnet``, which needs the
+   reference tree this host does not mount: a non-zero exit whose message
+   names its path.
 
 A K1 row at a preset's class count (or feature space's 512) that is
 slower than its library call is flagged (``FLAG:`` lines naming the preset,
@@ -3578,6 +3585,71 @@ def phase_bench(main_rec=None, timeout_s=300):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the reference-oracle harness
+# ---------------------------------------------------------------------------
+
+def oracle_main(parity, argv):
+    """``run.parity.main(argv)`` in this process: (exit status, stdout,
+    stderr, seconds)."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            parity.main(argv)
+            code = None
+        except SystemExit as e:
+            code = e.code
+    torch.cuda.synchronize()
+    return code, out.getvalue(), err.getvalue(), time.perf_counter() - t
+
+
+def phase_oracle(mods):
+    """Phase 20: ``run.parity.main --torch-oracle small --stages sonata
+    --device cuda`` (the port's SonataTeacher on the card, f32 with TF32
+    off, against the naive numpy Sonata; exit 0, rows within 1e-5, TF32
+    put back, device memory allocated), then ``--stages focalnet``, which
+    needs the reference tree this host lacks: a non-zero exit naming its
+    path. K1 / K2 counts set to 0 just before, 0 just after."""
+    from geopurify_tpu_torch.parity import shims
+    from geopurify_tpu_torch.run import parity
+
+    band, nce = mods["band"], mods["nce"]
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    allocs = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+    band.banded_window_matmul.launches = 0
+    nce.info_nce_fwd.launches = nce.info_nce_bwd.launches = 0
+    code, out, err, sonata_s = oracle_main(
+        parity, ["--torch-oracle", "small", "--stages", "sonata", "--device", "cuda"])
+    rows = {f[0]: (float(f[1]), float(f[2])) for f in
+            (line.split() for line in out.splitlines()) if f and f[0].startswith("sonata/")}
+    for name, (mx, rel) in rows.items():
+        log(f"  oracle {name}: max|d| {mx:.3e}, rel {rel:.3e} (the card against the naive numpy)")
+    log(f"oracle --stages sonata on the card: exit status {code}, {sonata_s:.1f} s")
+    assert code == 0, f"--torch-oracle --stages sonata exited {code}:\n{out}\n{err[-2000:]}"
+    assert sorted(rows) == ["sonata/maxpool_stem", "sonata/meanpool_affine"], out
+    assert all(rel < 1e-5 for _, rel in rows.values()), rows
+    assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == tf32
+    assert torch.cuda.memory_stats().get("allocation.all.allocated", 0) > allocs, \
+        "the sonata stage allocated nothing on the card"
+    code_ref, _, err_ref, ref_s = oracle_main(
+        parity, ["--torch-oracle", "small", "--stages", "focalnet", "--device", "cuda"])
+    message = err_ref.strip().splitlines()[-1] if err_ref.strip() else ""
+    log(f"oracle --stages focalnet without the reference tree: exit status {code_ref}, "
+        f"{ref_s:.1f} s: {message}")
+    assert code_ref not in (0, None), f"--stages focalnet exited {code_ref} without the tree"
+    assert shims.reference_root() in err_ref, err_ref[-2000:]
+    launches = (band.banded_window_matmul.launches, nce.info_nce_fwd.launches,
+                nce.info_nce_bwd.launches)
+    log(f"oracle launches: K1 {launches[0]}, K2 fwd {launches[1]}, K2 bwd {launches[2]}")
+    assert launches == (0, 0, 0), f"the oracle path launched K1 / K2: {launches}"
+    return dict(sonata_exit=code, sonata_s=sonata_s, rows=rows, reference_exit=code_ref,
+                reference_s=ref_s, reference_message=message, launches=launches)
+
+
 def load_mods():
     """The port's modules by short name (the rank processes of phase 13
     import them anew)."""
@@ -3682,6 +3754,7 @@ def main() -> int:
     train2d = run("17 the 2D trainer", phase_train2d, mods)
     prep = run("18 the data-preparation path", phase_prep, mods)
     bench = run("19 the bench", phase_bench, main_rec)
+    oracle = run("20 the reference-oracle harness", phase_oracle, mods)
 
     # K1 at every shape a main path launched it: the bench-spec scenes
     # (phase 3), the scannet, scannet200 and feature-space preset-scale
@@ -3757,7 +3830,7 @@ def main() -> int:
                   k1_behind_library=k1_behind, preset=preset,
                   validation_small=val_small, released=released, parallel=parallel,
                   grid_search=grid, two_d=two_d, interactive=interactive, train2d=train2d,
-                  prep=prep, bench=bench)
+                  prep=prep, bench=bench, oracle=oracle)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1, default=str))

@@ -7,7 +7,8 @@ data layer ``data.loaders``), and Stage-1 training
 synthetic or on-disk scenes, with the released checkpoints converted on load
 (``utils.convert_xdecoder``, ``utils.convert_sonata``), and the bench
 (``run.bench``: scenes/s and steps/s, one JSON line), for one NVIDIA
-H100. The JAX package ``geopurify_tpu`` stays the reference:
+H100; and the harness against the reference torch code (``parity``,
+``run.parity --torch-oracle``). The JAX package ``geopurify_tpu`` stays the reference:
 every module here cites its JAX counterpart by file:line, and the tests in
 ``tests/test_torch_port_*.py`` hold the two against each other on the CPU.
 

@@ -27,7 +27,7 @@ raises on a machine without a card; tests pass ``device="cpu"``.
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -57,6 +57,12 @@ from geopurify_tpu_torch.ops.infonce import info_nce_loss_fused
 from geopurify_tpu_torch.ops.pooling import geometry_guided_pooling
 from geopurify_tpu_torch.ops.segment import segment_mean
 from geopurify_tpu_torch.ops.sparse_conv import build_neighbor_table, build_zstack_table
+
+
+# geopurify_tpu/models/pipeline.py:58
+class SceneFeatures(NamedTuple):
+    features: torch.Tensor     # [P, feature_dim] fused (and filled) features, f32
+    view_count: torch.Tensor   # [P] number of views that saw each point
 
 
 # geopurify_tpu/models/pipeline.py:63
@@ -163,10 +169,10 @@ class GeoPurifyPipeline:
 
     # geopurify_tpu/models/pipeline.py:210
     def lift_scene(self, batch: SceneBatch, n_valid: Optional[int] = None,
-                   stage_seconds: Optional[dict] = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   stage_seconds: Optional[dict] = None) -> SceneFeatures:
         """Lift every valid view (packed first) in micro-batches, fuse, fill.
-        Returns (fused features [P, feature_dim] f32, view_count [P]). The
+        Returns ``SceneFeatures(features [P, feature_dim] f32, view_count
+        [P])``. The
         X-Decoder lifts index-valued views; the lseg / ape backends dense
         ones (stored in bf16 from 2^28 view-feature values on, as in JAX)."""
         V = batch.images.shape[0]
@@ -220,7 +226,7 @@ class GeoPurifyPipeline:
                                       num_points=P, top_k=top_k)
         fused = self.fill_unseen(fused, count, batch)
         _mark(stage_seconds, "fuse_fill", t1, dev)
-        return fused, count
+        return SceneFeatures(fused, count)
 
     # geopurify_tpu/models/pipeline.py:300-321
     def fill_unseen(self, fused, count, batch: SceneBatch) -> torch.Tensor:

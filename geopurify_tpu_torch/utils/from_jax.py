@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import re
 from collections.abc import Mapping
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -88,6 +88,43 @@ def params_from_jax(variables) -> Dict[str, torch.Tensor]:
 
 
 xdecoder_from_jax = sonata_from_jax = lang_from_jax = params_from_jax
+
+
+def sonata_to_jax(state_dict) -> Dict[str, Any]:
+    """The inverse of ``params_from_jax`` for ``models.sonata.SonataTeacher``:
+    its state dict as the Flax-layout tree of numpy arrays that the JAX
+    teacher and ``parity/sonata_oracle.sonata_forward_naive`` read. Dense
+    ``weight`` [out, in] -> ``kernel`` [in, out]; a norm's ``weight`` ->
+    ``scale``; the sparse convs' [27, Cin, Cout] kernels as they are;
+    ``stage{s}_blocks.{d}`` stacked on a leading depth axis under
+    ``stage{s}_blocks/block``."""
+    tree: Dict[str, Any] = {}
+    stacked: Dict[tuple, Dict[int, np.ndarray]] = {}
+    for key, val in state_dict.items():
+        *mods, leaf = key.split(".")
+        a = val.detach().cpu().numpy() if isinstance(val, torch.Tensor) else np.asarray(val)
+        if leaf == "weight":
+            if a.ndim not in (1, 2):
+                raise ValueError(f"{key}: a Sonata weight is a Dense or a norm one, "
+                                 f"not of shape {a.shape}")
+            leaf, a = ("scale", a) if a.ndim == 1 else ("kernel", a.T)
+        a = np.ascontiguousarray(a)
+        i = next((i for i, m in enumerate(mods[:-1])
+                  if m.endswith("_blocks") and mods[i + 1].isdigit()), None)
+        if i is not None:
+            stacked.setdefault((*mods[:i + 1], "block", *mods[i + 2:], leaf),
+                               {})[int(mods[i + 1])] = a
+            continue
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = a
+    for path, by_depth in stacked.items():
+        node = tree
+        for m in path[:-1]:
+            node = node.setdefault(m, {})
+        node[path[-1]] = np.stack([by_depth[d] for d in sorted(by_depth)])
+    return tree
 
 
 def student_from_jax(variables) -> Dict[str, torch.Tensor]:

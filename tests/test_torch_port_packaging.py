@@ -105,7 +105,8 @@ def test_build_dir_falls_back_to_the_user_cache(monkeypatch, tmp_path, caplog):
 
 def test_slice_modules_import_without_jax_and_default_to_cuda():
     mods = ("data.preprocess", "native", "ops.voxelize", "data.mappers", "data.registry",
-            "data.registry_catalog", "run.parity", "utils.visualization", "utils.profiling")
+            "data.registry_catalog", "run.parity", "utils.visualization", "utils.profiling",
+            "parity.compare", "parity.oracle", "parity.shims", "parity.sonata_oracle")
     code = (
         "import importlib, sys, inspect\n"
         f"for m in {mods!r}:\n"
@@ -114,9 +115,10 @@ def test_slice_modules_import_without_jax_and_default_to_cuda():
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'geopurify_tpu'))\n"
         "assert not bad, bad\n"
         "from geopurify_tpu_torch.run import parity\n"
+        "print(inspect.signature(parity.run_torch_oracle).parameters['device'].default)\n"
         "print(inspect.signature(parity.run_ours).parameters['device'].default)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split()[-1] == "cuda"
+    assert out.stdout.split()[-2:] == ["cuda", "cuda"]

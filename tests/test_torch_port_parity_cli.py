@@ -193,13 +193,36 @@ def test_main_runs_the_default_config_without_a_preset(world, monkeypatch):
         tparity.main(["--ckpt", world["ckpt"], "--dtype", "float16"])
 
 
-def test_main_refuses_the_oracle_modes_and_needs_a_checkpoint():
-    for flags in (["--torch-oracle", "small"], ["--stages", "head"], ["--report", "r.md"]):
-        with pytest.raises(NotImplementedError, match="reference torch code"):
-            tparity.main(["--ckpt", "x.pt"] + flags)
-    with pytest.raises(SystemExit) as e:
-        tparity.main(["--device", "cpu"])
-    assert e.value.code == 2
+def test_main_refuses_the_oracle_modes_and_needs_a_checkpoint(monkeypatch, tmp_path):
+    """The oracle modes run (``run_all`` stubbed here: the harness has files
+    of its own, tests/test_torch_port_oracle_*.py): ``--torch-oracle``
+    hands its size, ``--stages`` and ``--device`` to ``run_all`` and exits
+    with the verdict, ``--report`` writes the markdown. ``--stages`` /
+    ``--report`` without ``--torch-oracle``, and no ``--ckpt`` without
+    it, are parser errors (exit 2)."""
+    from geopurify_tpu_torch.parity import compare as tcompare
+
+    seen = []
+
+    def run_all(size, stages=None, device="cuda"):
+        seen.append((size, stages, str(device)))
+        return {"sonata/maxpool_stem": (1e-6, 2e-7)}
+
+    monkeypatch.setattr(tcompare, "run_all", run_all)
+    report = tmp_path / "r.md"
+    for flags, want in ((["--torch-oracle", "small", "--device", "cpu"], ("small", None, "cpu")),
+                        (["--torch-oracle", "full", "--stages", "sonata,head", "--device", "cpu",
+                          "--report", str(report)], ("full", ["sonata", "head"], "cpu"))):
+        with pytest.raises(SystemExit) as e:
+            tparity.main(flags)
+        assert e.value.code == 0 and seen[-1] == want
+    assert "sonata/maxpool_stem" in report.read_text()
+    for flags in (["--stages", "head"], ["--report", "r.md"], ["--device", "cpu"],
+                  ["--torch-oracle", "small", "--stages", "nope", "--device", "cpu"]):
+        with pytest.raises(SystemExit) as e:
+            tparity.main(flags)
+        assert e.value.code == 2, flags
+    assert len(seen) == 2
 
 
 def test_return_aux_order_matches_jax(world):

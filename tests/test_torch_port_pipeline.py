@@ -122,7 +122,11 @@ def test_lift_scene_matches_jax():
     jb, tb = smoke_scene(2, cfg)
     ref = jp.lift_scene(jb)
     with torch.no_grad():
-        fused, count = tp.lift_scene(tb)
+        lifted = tp.lift_scene(tb)
+    fused, count = lifted
+    # a NamedTuple with the JAX fields (geopurify_tpu/models/pipeline.py:58-61)
+    assert lifted._fields == type(ref)._fields == ("features", "view_count")
+    assert lifted.features is fused and lifted.view_count is count
     np.testing.assert_array_equal(count.numpy(), np.asarray(ref.view_count))
     np.testing.assert_allclose(fused.numpy(), np.asarray(ref.features),
                                rtol=1e-4, atol=1e-5)
