@@ -1,0 +1,10 @@
+"""The whole training step's share of the bf16 peak: the counted
+operations of a step (``work/<cell>.json``) over its mean wall time."""
+
+from perfbench.readers import mfu_pct
+
+UNIT = "%"
+
+
+def read(rec):
+    return mfu_pct(rec, 1)

@@ -1,0 +1,117 @@
+"""``BENCHMARK.json`` against the benchmark's contract: keys, names and
+units in the allowed characters, every piece found by name in its own
+file, and every per-layer metric's cells reporting the end-to-end metric
+it moves."""
+
+import json
+import re
+from pathlib import Path
+
+import pytest
+
+from perfbench import cells
+
+ROOT = Path(__file__).resolve().parents[2]
+BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
+UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
+PATH = re.compile(r"^[A-Za-z0-9_./\-]{1,200}$")
+
+
+def line(s):
+    return isinstance(s, str) and 1 <= len(s) <= 200 and "\n" not in s and "\t" not in s
+
+
+def test_top_level():
+    assert set(BENCH) == {"command", "paths", "run_seconds", "configs", "workloads",
+                          "end_to_end", "per_layer"}
+    assert len((ROOT / "BENCHMARK.json").read_bytes()) <= 64 * 1024
+    assert 1 <= len(BENCH["command"]) <= 32 and all(line(w) for w in BENCH["command"])
+    assert 1 <= len(BENCH["paths"]) <= 16
+    for p in BENCH["paths"]:
+        assert PATH.match(p) and not p.startswith("/") and ".." not in p.split("/")
+        assert not p.rstrip("/").endswith("_torch") and (ROOT / p).is_dir()
+    rs = BENCH["run_seconds"]
+    assert isinstance(rs, int) and 1 <= rs <= 51
+    # a full check of 24 cells (2 + 14 runs a cell, each run_seconds + 60 s,
+    # 180 s a cell to compile, 1200 s spare) fits in 43200 s
+    assert (2 + 14 * 24) * (rs + 60) + 24 * 2 * 90 + 1200 <= 43200
+
+
+def test_names_unique_and_well_formed():
+    names = ([c["name"] for c in BENCH["configs"]] + [w["name"] for w in BENCH["workloads"]]
+             + [m["name"] for m in BENCH["end_to_end"] + BENCH["per_layer"]])
+    assert len(names) == len(set(names))
+    for n in names:
+        assert NAME.match(n), n
+
+
+def test_configs():
+    assert 1 <= len(BENCH["configs"]) <= 24
+    used = {w["config"] for w in BENCH["workloads"]}
+    files = set()
+    for c in BENCH["configs"]:
+        assert set(c) == {"name", "source", "file", "reduced", "why"}
+        assert line(c["source"]) and line(c["why"]) and c["name"] in used
+        assert c["file"].startswith("perfbench/") and (ROOT / c["file"]).is_file()
+        assert c["file"] not in files
+        files.add(c["file"])
+        conf = json.loads((ROOT / c["file"]).read_text())
+        assert conf["name"] == c["name"] and conf["reduced"] == c["reduced"]
+        assert len(c["reduced"]) <= 16 and all(NAME.match(k) for k in c["reduced"])
+
+
+def test_workloads_found_by_name():
+    ws = BENCH["workloads"]
+    assert 1 <= len(ws) <= 24
+    assert len({(w["config"], w["traffic"]) for w in ws}) == len(ws)
+    assert sum(w["chips"] == 4 for w in ws) <= max(1, len(ws) // 4)
+    for w in ws:
+        assert set(w) == {"name", "config", "traffic", "chips", "why"}
+        assert w["chips"] in (1, 4) and line(w["why"]) and NAME.match(w["traffic"])
+        cell = cells.load_cell(w["name"])
+        assert cell["name"] == w["name"] and cell["config"] == w["config"]
+        assert cell["traffic"]["name"] == w["traffic"] and cell["chips"] == w["chips"]
+        assert cell["why"] == w["why"] and cell["limits"]
+        assert cells.load_work(w["name"]), f"work/{w['name']}.json is missing"
+
+
+def _reporting(metric):
+    return set(metric.get("workloads", [w["name"] for w in BENCH["workloads"]]))
+
+
+def test_metrics():
+    e2e = {m["name"]: m for m in BENCH["end_to_end"]}
+    assert 1 <= len(e2e) <= 16 and "setup_s" in e2e
+    assert e2e["setup_s"]["bound"] <= 0.25
+    for m in BENCH["end_to_end"]:
+        assert set(m) - {"workloads"} == {"name", "unit", "better", "bound", "source"}
+        assert 0.01 <= m["bound"] <= 0.25 and m["source"] in ("host_clock", "device_trace")
+    assert 1 <= len(BENCH["per_layer"]) <= 128
+    for m in BENCH["per_layer"]:
+        assert set(m) - {"workloads"} == {"name", "unit", "better", "source", "layer", "moves"}
+        assert m["source"] in ("device_trace", "program_span", "program_counter", "host_clock")
+        assert line(m["layer"]) and m["moves"] in e2e
+        assert _reporting(m) <= _reporting(e2e[m["moves"]]), m["name"]
+        assert (ROOT / "perfbench" / "metrics" / f"{m['name']}.py").is_file()
+    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
+        assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
+        if m["name"].endswith("_roofline") or "_roofline." in m["name"]:
+            assert m["unit"] == "%"
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
+def test_every_cell_reports_enough(cell):
+    e2e = [m["name"] for m in BENCH["end_to_end"] if cell in _reporting(m)]
+    layer = [m["name"] for m in BENCH["per_layer"] if cell in _reporting(m)]
+    assert "setup_s" in e2e and len(e2e) >= 2 and layer
+    # a model runs: a whole-item share of the peak beside the rooflines
+    assert any("mfu" in n for n in layer)
+
+
+def test_files_named_from_names():
+    for p in (ROOT / "perfbench").rglob("*"):
+        if "__pycache__" in p.parts or p.is_dir():
+            continue
+        rel = p.relative_to(ROOT).as_posix()
+        assert PATH.match(rel), rel
