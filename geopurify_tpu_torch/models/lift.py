@@ -20,6 +20,7 @@ import torch
 from geopurify_tpu_torch.models.layers import _aa_resize_taps, resize_bicubic_antialias
 from geopurify_tpu_torch.ops.knn import nearest_donor, nearest_fill, nearest_fill_grid
 from geopurify_tpu_torch.ops.segment import segment_sum
+from geopurify_tpu_torch.utils import profiling
 
 
 # geopurify_tpu/models/lift.py:33
@@ -188,10 +189,11 @@ def topk_agreement(view_logits, ptrs, ids, view_point_valid, consensus, top_k: i
     tp = torch.zeros((P, top_k), dtype=torch.int64, device=dev)
     for v in range(V):
         ok = view_point_valid[v]
-        rid = ids[v][ok]                                               # unique ids
-        agree = view_logits[v][ok].to(torch.float32).gather(1, consensus[rid][:, None])
+        rid = profiling.masked(ids[v], ok)                             # unique ids
+        agree = profiling.masked(view_logits[v], ok).to(torch.float32).gather(
+            1, consensus[rid][:, None])
         cat_s = torch.cat([ts[rid], agree], 1)
-        cat_p = torch.cat([tp[rid], ptrs[v][ok].long()[:, None]], 1)
+        cat_p = torch.cat([tp[rid], profiling.masked(ptrs[v], ok).long()[:, None]], 1)
         new_s, arg = torch.sort(cat_s, dim=1, descending=True, stable=True)
         ts[rid] = new_s[:, :top_k]
         tp[rid] = torch.gather(cat_p, 1, arg[:, :top_k])

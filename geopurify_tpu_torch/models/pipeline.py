@@ -26,7 +26,7 @@ raises on a machine without a card; tests pass ``device="cpu"``.
 
 from __future__ import annotations
 
-import time
+import contextlib
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -57,6 +57,7 @@ from geopurify_tpu_torch.ops.infonce import info_nce_loss_fused
 from geopurify_tpu_torch.ops.pooling import geometry_guided_pooling
 from geopurify_tpu_torch.ops.segment import segment_mean
 from geopurify_tpu_torch.ops.sparse_conv import build_neighbor_table, build_zstack_table
+from geopurify_tpu_torch.utils import profiling
 
 
 # geopurify_tpu/models/pipeline.py:58
@@ -121,15 +122,16 @@ class GeoPurifyPipeline:
         view_coords = batch.points[batch.view_point_ids[sl].long() % P]
         out = self.xdecoder(images, self.text_embeddings, self.logit_scale)
         text_no_bg = self.text_embeddings[:-1]
-        lifts = [
-            lift_view_ids(
-                out["pred_masks"][b], out["mask_embed"][b], out["pred_logits"][b],
-                rows[b], cols[b], pv_valid[b], view_coords[b], text_no_bg,
-                self.logit_scale, tuple(self.cfg.xdecoder.mask_shape),
-                mask_threshold=self.cfg.xdecoder.mask_threshold)
-            for b in range(images.shape[0])
-        ]
-        return ViewLiftIds(*(torch.stack(x) for x in zip(*lifts)))
+        with profiling.span("lift"):
+            lifts = [
+                lift_view_ids(
+                    out["pred_masks"][b], out["mask_embed"][b], out["pred_logits"][b],
+                    rows[b], cols[b], pv_valid[b], view_coords[b], text_no_bg,
+                    self.logit_scale, tuple(self.cfg.xdecoder.mask_shape),
+                    mask_threshold=self.cfg.xdecoder.mask_threshold)
+                for b in range(images.shape[0])
+            ]
+            return ViewLiftIds(*(torch.stack(x) for x in zip(*lifts)))
 
     # geopurify_tpu/models/pipeline.py:150-182
     def _view_step_dense(self, batch: SceneBatch, lo: int, B: Optional[int] = None
@@ -185,47 +187,45 @@ class GeoPurifyPipeline:
         indexed = self.cfg.xdecoder.lift_backend == "xdecoder"
         vdtype = torch.bfloat16 if V * Pv * C >= (1 << 28) else torch.float32
         if n_valid is None:
-            n_valid = int(batch.view_valid.sum())
-        t0 = time.perf_counter()
-        bufs = ([], [], []) if indexed else ([], [])
-        for lo in range(0, n_valid, B):
-            start = min(lo, max(V - B, 0))     # shift the tail batch back, no wrap
-            lift = (self._view_step(batch, start) if indexed
-                    else self._view_step_dense(batch, start))
-            keep = min(B, n_valid - lo)
-            sl = slice(lo - start, lo - start + keep)
-            for buf, x in zip(bufs, lift):
-                buf.append(x[sl])
-        _mark(stage_seconds, "views", t0, dev)
-        t1 = time.perf_counter()
-        pad = V - n_valid
-        vp_valid = batch.view_point_valid & batch.view_valid[:, None]
-        top_k = self.cfg.xdecoder.fusion_top_k
-        if indexed:
-            if n_valid == 0:
-                winner = torch.zeros((V, Pv), dtype=torch.int32, device=dev)
-                emb_t = torch.zeros((V, 2, C), device=dev)
-                logit_t = torch.zeros((V, 2, n_cls), device=dev)
+            n_valid = int(profiling.host_read(batch.view_valid.sum()))
+        with profiling.stage_span("views", stage_seconds, dev):
+            bufs = ([], [], []) if indexed else ([], [])
+            for lo in range(0, n_valid, B):
+                start = min(lo, max(V - B, 0))     # shift the tail batch back, no wrap
+                lift = (self._view_step(batch, start) if indexed
+                        else self._view_step_dense(batch, start))
+                keep = min(B, n_valid - lo)
+                sl = slice(lo - start, lo - start + keep)
+                for buf, x in zip(bufs, lift):
+                    buf.append(x[sl])
+        with profiling.stage_span("fuse_fill", stage_seconds, dev):
+            pad = V - n_valid
+            vp_valid = batch.view_point_valid & batch.view_valid[:, None]
+            top_k = self.cfg.xdecoder.fusion_top_k
+            if indexed:
+                if n_valid == 0:
+                    winner = torch.zeros((V, Pv), dtype=torch.int32, device=dev)
+                    emb_t = torch.zeros((V, 2, C), device=dev)
+                    logit_t = torch.zeros((V, 2, n_cls), device=dev)
+                else:
+                    winner, emb_t, logit_t = (torch.cat(b) for b in bufs)
+                    if pad:
+                        Qe = emb_t.shape[1]
+                        winner = torch.cat([winner, winner.new_zeros((pad, Pv))])
+                        emb_t = torch.cat([emb_t, emb_t.new_zeros((pad, Qe, C))])
+                        logit_t = torch.cat([logit_t, logit_t.new_zeros((pad, Qe, n_cls))])
+                fused, count = fuse_views_indexed(
+                    winner, emb_t, logit_t, batch.view_point_ids, vp_valid,
+                    num_points=P, top_k=top_k)
             else:
-                winner, emb_t, logit_t = (torch.cat(b) for b in bufs)
-                if pad:
-                    Qe = emb_t.shape[1]
-                    winner = torch.cat([winner, winner.new_zeros((pad, Pv))])
-                    emb_t = torch.cat([emb_t, emb_t.new_zeros((pad, Qe, C))])
-                    logit_t = torch.cat([logit_t, logit_t.new_zeros((pad, Qe, n_cls))])
-            fused, count = fuse_views_indexed(
-                winner, emb_t, logit_t, batch.view_point_ids, vp_valid,
-                num_points=P, top_k=top_k)
-        else:
-            feats = torch.zeros((V, Pv, C), dtype=vdtype, device=dev)
-            logits = torch.zeros((V, Pv, n_cls), device=dev)
-            if n_valid:
-                feats[:n_valid] = torch.cat(bufs[0]).to(vdtype)
-                logits[:n_valid] = torch.cat(bufs[1])
-            fused, count = fuse_views(feats, logits, batch.view_point_ids, vp_valid,
-                                      num_points=P, top_k=top_k)
-        fused = self.fill_unseen(fused, count, batch)
-        _mark(stage_seconds, "fuse_fill", t1, dev)
+                feats = torch.zeros((V, Pv, C), dtype=vdtype, device=dev)
+                logits = torch.zeros((V, Pv, n_cls), device=dev)
+                if n_valid:
+                    feats[:n_valid] = torch.cat(bufs[0]).to(vdtype)
+                    logits[:n_valid] = torch.cat(bufs[1])
+                fused, count = fuse_views(feats, logits, batch.view_point_ids, vp_valid,
+                                          num_points=P, top_k=top_k)
+            fused = self.fill_unseen(fused, count, batch)
         return SceneFeatures(fused, count)
 
     # geopurify_tpu/models/pipeline.py:300-321
@@ -245,15 +245,16 @@ class GeoPurifyPipeline:
         convs run z-stacked (``ops.sparse_conv.ZStackTable``, residual
         budget max(16384, M // 16)): the same convolution."""
         M = batch.voxel_coords.shape[0]
-        p2v = torch.where(batch.point_valid, batch.point2voxel.long(), M)
-        voxel_sem = segment_mean(f2d, p2v, M)
-        voxel_geom = segment_mean(batch.geom_feats.to(torch.float32), p2v, M)
-        voxel_in = torch.cat([voxel_sem, voxel_geom], 1)
-        nbr = build_neighbor_table(batch.voxel_coords, batch.voxel_valid)
-        if M >= self.cfg.student.zstack_min_voxels:
-            nbr = build_zstack_table(batch.voxel_coords, batch.voxel_valid, nbr,
-                                     res_budget=max(16384, M // 16))
-        embed = self.student(voxel_in, nbr, batch.voxel_valid)
+        with profiling.span("student"):
+            p2v = torch.where(batch.point_valid, batch.point2voxel.long(), M)
+            voxel_sem = segment_mean(f2d, p2v, M)
+            voxel_geom = segment_mean(batch.geom_feats.to(torch.float32), p2v, M)
+            voxel_in = torch.cat([voxel_sem, voxel_geom], 1)
+            nbr = build_neighbor_table(batch.voxel_coords, batch.voxel_valid)
+            if M >= self.cfg.student.zstack_min_voxels:
+                nbr = build_zstack_table(batch.voxel_coords, batch.voxel_valid, nbr,
+                                         res_budget=max(16384, M // 16))
+            embed = self.student(voxel_in, nbr, batch.voxel_valid)
         return voxel_in, embed, p2v
 
     # geopurify_tpu/models/pipeline.py:343
@@ -278,10 +279,11 @@ class GeoPurifyPipeline:
 
     # geopurify_tpu/models/pipeline.py:471
     def _classify(self, refined):
-        f = refined / torch.clamp(torch.linalg.norm(refined, dim=-1, keepdim=True),
-                                  min=1e-12)
-        logits = self.logit_scale * f @ self.text_embeddings[:-1].T
-        return logits, torch.argmax(logits, dim=-1)
+        with profiling.span("classify"):
+            f = refined / torch.clamp(torch.linalg.norm(refined, dim=-1, keepdim=True),
+                                      min=1e-12)
+            logits = self.logit_scale * f @ self.text_embeddings[:-1].T
+            return logits, torch.argmax(logits, dim=-1)
 
     # geopurify_tpu/models/pipeline.py:420
     def _pool_classify(self, f2d, batch: SceneBatch, want_features: bool = False):
@@ -291,12 +293,14 @@ class GeoPurifyPipeline:
             # per-row normalization cannot move the argmax
             M = batch.voxel_coords.shape[0]
             voxel_in, embed, p2v = self._voxel_embed(f2d, batch)
-            proj = voxel_in[:, : pc.feature_dim] @ self.text_embeddings[:-1].T
+            with profiling.span("classify"):
+                proj = voxel_in[:, : pc.feature_dim] @ self.text_embeddings[:-1].T
             smoothed, band_overflow = self._smooth(embed, proj, batch)
-            smoothed = torch.cat([smoothed, smoothed.new_zeros((1, smoothed.shape[1]))])
-            pt = smoothed[torch.clamp(p2v, max=M)]
-            logits = self.logit_scale * torch.where(batch.point_valid[:, None], pt, 0.0)
-            pred = torch.argmax(logits, dim=-1)
+            with profiling.span("classify"):
+                smoothed = torch.cat([smoothed, smoothed.new_zeros((1, smoothed.shape[1]))])
+                pt = smoothed[torch.clamp(p2v, max=M)]
+                logits = self.logit_scale * torch.where(batch.point_valid[:, None], pt, 0.0)
+                pred = torch.argmax(logits, dim=-1)
             refined = None
             if want_features:
                 vi = voxel_in[:, : pc.feature_dim]
@@ -318,16 +322,18 @@ class GeoPurifyPipeline:
         Returns ``scene_features`` (None unless ``want_features``),
         ``logits`` [P, n_cls], ``pred`` [P], ``view_count`` [P] and
         ``band_overflow`` (int: > 0 means the banded operator overflowed and
-        the exact gather path ran). ``profile`` synchronizes the device at
-        the stage boundaries and adds ``stage_seconds`` (views, fuse_fill,
-        pool_classify)."""
+        the exact gather path ran). ``profile`` records the scene's spans
+        (``utils.profiling``: the root ``scene`` and its parts), synchronizes
+        the device at the stage boundaries and adds ``stage_seconds`` (views,
+        fuse_fill, pool_classify: each stage's host seconds)."""
         stages = {} if profile else None
-        f2d, view_count = self.lift_scene(batch, n_valid=n_valid_views,
-                                          stage_seconds=stages)
-        t0 = time.perf_counter()
-        refined, band_overflow, logits, pred = self._pool_classify(
-            f2d, batch, want_features=want_features)
-        _mark(stages, "pool_classify", t0, f2d.device)
+        record = profiling.recording(self.device) if profile else contextlib.nullcontext()
+        with record, profiling.span("scene", item=True):
+            f2d, view_count = self.lift_scene(batch, n_valid=n_valid_views,
+                                              stage_seconds=stages)
+            with profiling.stage_span("pool_classify", stages, f2d.device):
+                refined, band_overflow, logits, pred = self._pool_classify(
+                    f2d, batch, want_features=want_features)
         out = {"scene_features": refined, "logits": logits, "pred": pred,
                "view_count": view_count, "band_overflow": band_overflow}
         if profile:
@@ -372,29 +378,31 @@ class GeoPurifyPipeline:
                     num_micro=cc.num_micro_negatives, spatial_k=cc.spatial_knn_k,
                     spatial_method=cc.spatial_method,
                     spatial_radius=cc.spatial_radius)
-        p2v = torch.where(batch.point_valid, batch.point2voxel.long(), M)
-        voxel_sem = segment_mean(f2d.to(torch.float32), p2v, M)
-        voxel_geom = segment_mean(batch.geom_feats.to(torch.float32), p2v, M)
-        voxel_in = torch.cat([voxel_sem, voxel_geom], 1)
-        nbr = build_neighbor_table(batch.voxel_coords, batch.voxel_valid)
-        embed = self.student(voxel_in, nbr, batch.voxel_valid, train=train, group=group)
-        embed_pad = torch.cat([embed, embed.new_zeros((1, embed.shape[1]))])
-        p2v_c = torch.clamp(p2v, max=M)
+        with profiling.span("forward"):
+            p2v = torch.where(batch.point_valid, batch.point2voxel.long(), M)
+            voxel_sem = segment_mean(f2d.to(torch.float32), p2v, M)
+            voxel_geom = segment_mean(batch.geom_feats.to(torch.float32), p2v, M)
+            voxel_in = torch.cat([voxel_sem, voxel_geom], 1)
+            nbr = build_neighbor_table(batch.voxel_coords, batch.voxel_valid)
+            embed = self.student(voxel_in, nbr, batch.voxel_valid, train=train, group=group)
+            embed_pad = torch.cat([embed, embed.new_zeros((1, embed.shape[1]))])
+            p2v_c = torch.clamp(p2v, max=M)
 
-        def sample_embed(idx):
-            return embed_pad[p2v_c[idx.long()]]
+            def sample_embed(idx):
+                return embed_pad[p2v_c[idx.long()]]
 
-        # f32 for both losses: the K2 kernels take f32 only, as the TPU
-        # kernels cast their blocks (a bf16 student's gradient casts back)
-        a = sample_embed(pairs.anchor_idx).float()
-        p = sample_embed(pairs.positive_idx).float()
-        n = sample_embed(pairs.negative_idx.reshape(-1)).reshape(
-            cc.num_anchors, cc.num_negatives, -1).float()
+            # f32 for both losses: the K2 kernels take f32 only, as the TPU
+            # kernels cast their blocks (a bf16 student's gradient casts back)
+            a = sample_embed(pairs.anchor_idx).float()
+            p = sample_embed(pairs.positive_idx).float()
+            n = sample_embed(pairs.negative_idx.reshape(-1)).reshape(
+                cc.num_anchors, cc.num_negatives, -1).float()
         A = cc.num_anchors
-        if cc.fused_loss and A % min(128, A) == 0 and A % min(64, A) == 0:
-            loss = info_nce_loss_fused(a, p, n, pairs.anchor_valid, cc.temperature)
-        else:
-            loss = info_nce_loss(a, p, n, pairs.anchor_valid, cc.temperature)
+        with profiling.span("loss"):
+            if cc.fused_loss and A % min(128, A) == 0 and A % min(64, A) == 0:
+                loss = info_nce_loss_fused(a, p, n, pairs.anchor_valid, cc.temperature)
+            else:
+                loss = info_nce_loss(a, p, n, pairs.anchor_valid, cc.temperature)
         return loss, pairs
 
 
@@ -407,11 +415,3 @@ def build_sonata(sc: SonataConfig) -> SonataTeacher:
         stem_kernel=sc.stem_kernel, pool_reduce=sc.pool_reduce,
         aux_norm_affine_only=(sc.norm == "bn_folded"),
         dtype=torch.bfloat16 if sc.dtype == "bfloat16" else torch.float32).eval()
-
-
-def _mark(stages: Optional[dict], name: str, t0: float, device) -> None:
-    if stages is None:
-        return
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    stages[name] = time.perf_counter() - t0

@@ -41,6 +41,7 @@ from geopurify_tpu_torch.models.layers import (
 from geopurify_tpu_torch.models.pixel_decoder import TransformerEncoderPixelDecoder
 from geopurify_tpu_torch.models.pixel_decoder_deform import MSDeformAttnPixelDecoder
 from geopurify_tpu_torch.models.vit_backbone import ViTBackbone
+from geopurify_tpu_torch.utils import profiling
 
 
 # geopurify_tpu/models/xdecoder.py:45
@@ -316,9 +317,11 @@ def encode_pixel_features(model: XDecoderSegModel, images: torch.Tensor
                           ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Normalize/pad + backbone + pixel decoder: (mask_features,
     multi_scale). Loops that re-run only the head (captioning) encode once."""
-    x = _normalize_and_pad(model.cfg, images)
-    feats = model.backbone(x.to(model_dtype(model.cfg)))
-    mask_features, _, multi_scale = model.pixel_decoder(feats)
+    with profiling.span("backbone"):
+        x = _normalize_and_pad(model.cfg, images)
+        feats = model.backbone(x.to(model_dtype(model.cfg)))
+    with profiling.span("pixel_decoder"):
+        mask_features, _, multi_scale = model.pixel_decoder(feats)
     return mask_features, multi_scale
 
 
@@ -328,5 +331,6 @@ def apply_head(model: XDecoderSegModel, multi_scale: Sequence[torch.Tensor],
                caption_tokens: Optional[torch.Tensor] = None, **kw) -> Dict[str, torch.Tensor]:
     """The query-decoder half of ``XDecoderSegModel`` (``kw``: the head's
     instrumentation, ``attn_mask_override`` / ``return_attn``)."""
-    return model.predictor(list(multi_scale), mask_features, text_embeddings,
-                           logit_scale, caption_tokens=caption_tokens, **kw)
+    with profiling.span("head"):
+        return model.predictor(list(multi_scale), mask_features, text_embeddings,
+                               logit_scale, caption_tokens=caption_tokens, **kw)

@@ -21,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from geopurify_tpu_torch.utils.profiling import hand_kernel
+from geopurify_tpu_torch.utils.profiling import counts_launches, hand_kernel
 
 _KERNEL_ROWS = 128        # rows a block, and the output's row padding
 _MAX_COLS = 512
@@ -92,6 +92,7 @@ def banded_window_matmul_work(R: int, M: int, band: int, C: int, n_t: int):
     return 2.0 * R * band * C, R * band * 2 + M * C * 2 + n_t * 4 + R * C * 4
 
 
+@counts_launches
 def banded_window_matmul(S: torch.Tensor, starts: torch.Tensor,
                          f: torch.Tensor, band: int,
                          row_tile: int = 2048) -> torch.Tensor:
@@ -149,9 +150,6 @@ def _launch(S, starts, f, band: int, row_tile: int) -> torch.Tensor:
         raise RuntimeError(f"band_matmul launch failed: CUDA error {err}")
     banded_window_matmul.launches += 1
     return out[:R, :C]
-
-
-banded_window_matmul.launches = 0
 
 
 def _lib():

@@ -22,6 +22,7 @@ from geopurify_tpu_torch.ops.knn import (
     knn_anchors_grid,
     knn_search,
 )
+from geopurify_tpu_torch.utils import profiling
 
 
 # geopurify_tpu/ops/contrastive.py:29
@@ -139,12 +140,13 @@ def sample_contrastive_pairs_hybrid(
     spatial_radius: float = 0.3,
 ) -> ContrastivePairs:
     """Anchors from ``generator``, then ``pairs_from_anchors``."""
-    anchor_idx, anchor_valid = select_anchors(generator, valid, num_anchors)
-    return pairs_from_anchors(
-        teacher_feats, valid, anchor_idx, anchor_valid, neighbor_idx=neighbor_idx,
-        coords=coords, num_macro=num_macro, num_micro=num_micro,
-        spatial_k=spatial_k, anchor_tile=anchor_tile, spatial_radius=spatial_radius,
-        spatial_method=spatial_method)
+    with profiling.span("sampler"):
+        anchor_idx, anchor_valid = select_anchors(generator, valid, num_anchors)
+        return pairs_from_anchors(
+            teacher_feats, valid, anchor_idx, anchor_valid, neighbor_idx=neighbor_idx,
+            coords=coords, num_macro=num_macro, num_micro=num_micro,
+            spatial_k=spatial_k, anchor_tile=anchor_tile, spatial_radius=spatial_radius,
+            spatial_method=spatial_method)
 
 
 # geopurify_tpu/ops/contrastive.py:162

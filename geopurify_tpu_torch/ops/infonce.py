@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from geopurify_tpu_torch.utils.profiling import hand_kernel
+from geopurify_tpu_torch.utils.profiling import counts_launches, hand_kernel
 
 _EPS = 1e-12
 _MAX_E = 128              # the kernel keeps at most 4 floats a lane
@@ -103,6 +103,7 @@ def info_nce_work(A: int, NEG: int, E: int, backward: bool):
     return 4.0 * E * (NEG + 2) * A * (3 if backward else 1), bytes_
 
 
+@counts_launches
 def info_nce_fwd(a, p, n, valid, temperature: float) -> torch.Tensor:
     """Per-anchor loss [A] f32 (the forward kernel). ``a``, ``p`` [A, E],
     ``n`` [A, NEG, E] f32 contiguous, ``valid`` [A] bool. Under
@@ -128,6 +129,7 @@ def _fwd_launch(a, p, n, valid, temperature: float) -> torch.Tensor:
     return per
 
 
+@counts_launches
 def info_nce_bwd(a, p, n, valid, temperature: float, g):
     """(da, dp, dn) f32 (the backward kernel) of ``sum_i g[i] * per[i]``;
     ``g`` [A] f32."""
@@ -153,10 +155,6 @@ def _bwd_launch(a, p, n, valid, temperature: float, g):
         raise RuntimeError(f"infonce_bwd launch failed: CUDA error {err}")
     info_nce_bwd.launches += 1
     return da, dp, dn
-
-
-info_nce_fwd.launches = 0
-info_nce_bwd.launches = 0
 
 
 class _InfoNCEFused(torch.autograd.Function):

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from geopurify_tpu_torch.ops.morton import hilbert_code
+from geopurify_tpu_torch.utils import profiling
 
 _TILE_ELEMS = 1 << 25    # pairs per brute-force distance tile (256 MiB of int64 keys)
 _BLOCK_ELEMS = 1 << 25   # pairs per pruned key block: [G, T, C] of at most 256 MiB
@@ -186,7 +187,7 @@ def argmin_search(
 def _hilbert_tiles(code: torch.Tensor, live: torch.Tensor, T: int):
     """The ``live`` rows sorted by ``code`` (stable), cut into tiles of
     ``T``: (rows [n_t, T] int64, -1 past the last live row; n_live)."""
-    n_live = int(live.sum())
+    n_live = int(profiling.host_read(live.sum()))
     big = torch.iinfo(code.dtype).max
     order = torch.argsort(torch.where(live, code, big), stable=True)[:n_live]
     n_t = -(-n_live // T)
@@ -255,7 +256,7 @@ def _box_candidates(xyz: torch.Tensor, rows: torch.Tensor, lo: torch.Tensor,
     p = xyz[rows]
     count = _count_lower_bound(p, lo, hi)
     live = count <= budget
-    if not bool(live.any()):
+    if not bool(profiling.host_read(live.any())):
         return cand, count
     o = torch.argsort(p[:, 0], stable=True)
     rows, p = rows[o], p[o]
@@ -263,7 +264,7 @@ def _box_candidates(xyz: torch.Tensor, rows: torch.Tensor, lo: torch.Tensor,
     ws = torch.searchsorted(xs, lo[:, 0].contiguous())
     wl = (torch.searchsorted(xs, hi[:, 0].contiguous(), right=True) - ws).clamp_(min=0)
     wl = wl * live
-    wl_h = wl.cpu().numpy()
+    wl_h = profiling.host_read(wl).numpy()
     ends = np.cumsum(wl_h)
     starts = ends - wl_h
     cid = starts // _FLAT_ELEMS
@@ -282,7 +283,7 @@ def _box_candidates(xyz: torch.Tensor, rows: torch.Tensor, lo: torch.Tensor,
         cs0[1:] = torch.cumsum(inb, 0)
         n_in = cs0[fstart + L] - cs0[fstart]
         count[a:b] = torch.where(live[a:b], n_in, count[a:b])
-        sel = torch.nonzero(inb & (n_in <= budget)[tile - a])[:, 0]
+        sel = profiling.nonzero(inb & (n_in <= budget)[tile - a])[:, 0]
         ts = tile[sel]
         cand[ts, cs0[sel] - cs0[fstart[ts - a]]] = rows[pos[sel]]
     return cand, count
@@ -372,9 +373,9 @@ def _knn_self_grid(coords, valid, k: int, radius: int = 12, num_candidates: int 
     if nv == 0 or k == 0:
         return dists, idx, stats
     lo, hi = _tile_boxes(c, qt, r)
-    rows = torch.nonzero(valid)[:, 0]
+    rows = profiling.nonzero(valid)[:, 0]
     cand, count = _box_candidates(c, rows, lo, hi, C)
-    count_h = count.cpu().numpy()
+    count_h = profiling.host_read(count).numpy()
     over = count_h > C
     stats["overflow_tiles"] = int(over.sum())
 
@@ -403,13 +404,15 @@ def _knn_self_grid(coords, valid, k: int, radius: int = 12, num_candidates: int 
                          sorted=True).values                   # [G*T, k]
         d_k = top[:, k - 1] >> shift
         ok = (top[:, k - 1] != big) & (d_k <= r * r) & (qi.reshape(-1) >= 0)
-        q_ok = qi.reshape(-1)[ok]
-        top = top[ok]
+        q_ok = profiling.masked(qi.reshape(-1), ok)
+        top = profiling.masked(top, ok)
         _place(dists, idx, q_ok, (top >> shift).to(torch.float32),
                (top & ((1 << shift) - 1)).to(torch.int32))
         done[q_ok] = True
-    failed = torch.nonzero(valid & ~done)[:, 0]
+    failed = profiling.nonzero(valid & ~done)[:, 0]
     stats["failed"] = int(failed.shape[0])
+    profiling.count("knn_self.queries", nv)
+    profiling.count("knn_self.failed", stats["failed"])
     if stats["failed"]:
         d_f, i_f = knn_search(c[failed], c, valid, k, query_ids=failed,
                               exclude_identical_index=True)
@@ -476,9 +479,9 @@ def _knn_anchors_grid(points, valid, anchor_idx, k: int, radius: float = 0.3,
     qid = torch.where(qt >= 0, aidx[qt.clamp(min=0)], -1)    # [n_t, T] point ids
     c64 = cf.to(torch.float64)
     lo, hi = _tile_boxes(c64, qid, float(r32))
-    rows = torch.nonzero(valid)[:, 0]
+    rows = profiling.nonzero(valid)[:, 0]
     cand, count = _box_candidates(c64, rows, lo, hi, C)
-    count_h = count.cpu().numpy()
+    count_h = profiling.host_read(count).numpy()
     over = count_h > C
     stats["overflow_tiles"] = int(over.sum())
     done = torch.zeros((A,), dtype=torch.bool, device=dev)
@@ -494,11 +497,11 @@ def _knn_anchors_grid(points, valid, anchor_idx, k: int, radius: float = 0.3,
                          sorted=True).values
         ok = ((top[:, k - 1] != _INT64_MAX) & (_key_value(top[:, k - 1]) < r2)
               & (qs.reshape(-1) >= 0))
-        s_ok = qs.reshape(-1)[ok]
-        top = top[ok]
+        s_ok = profiling.masked(qs.reshape(-1), ok)
+        top = profiling.masked(top, ok)
         _place(dists, idx, s_ok, _key_value(top), (top & 0xFFFFFFFF).to(torch.int32))
         done[s_ok] = True
-    failed = torch.nonzero(a_valid & ~done)[:, 0]
+    failed = profiling.nonzero(a_valid & ~done)[:, 0]
     stats["failed"] = int(failed.shape[0])
     if stats["failed"]:
         d_f, i_f = knn_search(cf[aidx[failed]], cf, valid, k, query_ids=aidx[failed],
@@ -517,8 +520,8 @@ def _nearest_donor_core(cf, donors_ok, need, query_tile):
     distances. Distances use the JAX form q_sq + d_sq - 2 q.d in f32 so the
     choice between near-equal donors follows the same rounding.
     Returns (qpos [n_need] int64, donor [n_need] int64, n_donors)."""
-    dpos = torch.nonzero(donors_ok, as_tuple=False)[:, 0]
-    qpos = torch.nonzero(need, as_tuple=False)[:, 0]
+    dpos = profiling.nonzero(donors_ok)[:, 0]
+    qpos = profiling.nonzero(need)[:, 0]
     n_donors = int(dpos.shape[0])
     if n_donors == 0 or qpos.shape[0] == 0:
         # JAX: an all-+inf argmin row lands on donor slot 0 == row 0
@@ -551,7 +554,7 @@ def nearest_fill(
     donors_ok = has_value & valid
     qpos, donor, _ = _nearest_donor_core(
         cf, donors_ok, valid & ~has_value,
-        _donor_tile(int(donors_ok.sum())))
+        _donor_tile(int(profiling.host_read(donors_ok.sum()))))
     out = features.clone()
     out[qpos] = features[donor]
     return torch.where(has_value[:, None], features, out)
@@ -570,7 +573,7 @@ def nearest_donor(
     donors_ok = has_value & valid
     qpos, donor, n_donors = _nearest_donor_core(
         cf, donors_ok, valid & ~has_value,
-        _donor_tile(int(donors_ok.sum())))
+        _donor_tile(int(profiling.host_read(donors_ok.sum()))))
     donor_full = torch.arange(N, dtype=torch.int32, device=coords.device)
     filled = torch.zeros((N,), dtype=torch.bool, device=coords.device)
     if n_donors > 0:
@@ -631,20 +634,21 @@ def _nearest_fill_grid(coords, has_value, valid, query_tile: int = 512,
     cell = torch.clamp((hi_v - lo_v).amax(), min=1e-6) / n_cells
     gi = torch.clamp(torch.nan_to_num((cf - lo_v[None]) / cell), 0, n_cells - 1)
     qt, n_need = _hilbert_tiles(hilbert_code(gi.to(torch.int32)), need, T)
-    qpos = torch.nonzero(need)[:, 0]
+    qpos = profiling.nonzero(need)[:, 0]
     stats = dict(queries=n_need, failed=0, tiles=qt.shape[0], overflow_tiles=0)
     donor = torch.zeros((N,), dtype=torch.int64, device=dev)
-    n_donors = int(donors_ok.sum())
+    n_donors = int(profiling.host_read(donors_ok.sum()))
     if n_need == 0 or n_donors == 0:
         # JAX: with no donor, every needing row takes row 0
         return qpos, donor[qpos], stats
-    radius = torch.tensor(radius_cells, dtype=torch.float32) * cell.cpu()
+    cell_h = profiling.host_read(cell)
+    radius = torch.tensor(radius_cells, dtype=torch.float32) * cell_h
     r2 = radius * radius
     R = max(float(radius), float(r2.double().sqrt()))
     c64 = cf.to(torch.float64)
     lo, hi = _tile_boxes(c64, qt, R)
-    cand, count = _box_candidates(c64, torch.nonzero(donors_ok)[:, 0], lo, hi, C)
-    count_h = count.cpu().numpy()
+    cand, count = _box_candidates(c64, profiling.nonzero(donors_ok)[:, 0], lo, hi, C)
+    count_h = profiling.host_read(count).numpy()
     over = count_h > C
     stats["overflow_tiles"] = int(over.sum())
     done = torch.zeros((N,), dtype=torch.bool, device=dev)
@@ -659,11 +663,11 @@ def _nearest_fill_grid(coords, has_value, valid, query_tile: int = 512,
         key = _ordered_key(d2.masked_fill_((ci < 0)[:, None, :], float("inf")))
         best = (key | ci.clamp(min=0)[:, None, :]).amin(2).reshape(-1)
         ok = (_key_value(best) <= r2.item()) & (qi.reshape(-1) >= 0)
-        q_ok = qi.reshape(-1)[ok]
-        donor[q_ok] = best[ok] & 0xFFFFFFFF
+        q_ok = profiling.masked(qi.reshape(-1), ok)
+        donor[q_ok] = profiling.masked(best, ok) & 0xFFFFFFFF
         done[q_ok] = True
     failed = need & ~done
-    stats["failed"] = int(failed.sum())
+    stats["failed"] = int(profiling.host_read(failed.sum()))
     if stats["failed"]:
         fpos, fdon, _ = _nearest_donor_core(cf, donors_ok, failed, _donor_tile(n_donors))
         donor[fpos] = fdon

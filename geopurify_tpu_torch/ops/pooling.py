@@ -21,6 +21,7 @@ import torch
 from geopurify_tpu_torch.ops.band import banded_window_matmul
 from geopurify_tpu_torch.ops.knn import knn_search, knn_self_grid
 from geopurify_tpu_torch.ops.morton import hilbert_code
+from geopurify_tpu_torch.utils import profiling
 
 RES_GROUP = 8
 
@@ -191,13 +192,13 @@ def build_banded_operator(
     in_band = (li >= 0) & (li < band) & ~dead
 
     S = torch.zeros((M, band), dtype=dtype, device=dev)
-    r_ib, k_ib = torch.nonzero(in_band, as_tuple=True)
+    r_ib, k_ib = profiling.nonzero(in_band, as_tuple=True)
     S[r_ib, li[r_ib, k_ib]] = weights[r_ib, k_ib].to(dtype)
 
     out_mask = (~in_band & ~dead).reshape(-1)
     n_out = out_mask.sum()
     R = max_residual
-    E = torch.nonzero(out_mask, as_tuple=False)[:R, 0]       # row-major order
+    E = profiling.nonzero(out_mask)[:R, 0]       # row-major order
     n_live = E.shape[0]
     res_row = torch.full((R,), M, dtype=torch.int64, device=dev)
     res_col = torch.zeros((R,), dtype=torch.int64, device=dev)
@@ -224,7 +225,7 @@ def iterate_pooling_banded(op: BandedOperator, feats: torch.Tensor,
     Rg_cap = op.grp_row.shape[0]
     head = min(Rg_cap, max(R // RES_GROUP, 1))
     # the JAX lax.cond on the headroom tail, decided once per scene
-    tail = Rg_cap > head and bool(op.grp_row[head] < M)
+    tail = Rg_cap > head and bool(profiling.host_read(op.grp_row[head] < M))
     parts = [(op.grp_col[:head], op.grp_w[:head], op.grp_row[:head])]
     if tail:
         parts.append((op.grp_col[head:], op.grp_w[head:], op.grp_row[head:]))
@@ -267,26 +268,28 @@ def geometry_guided_pooling(
     """Graph build + iterated aggregation. Returns (smoothed feats [M, C],
     band overflow: edges past the residual capacity; > 0 means the exact
     gather path ran instead of the banded one)."""
-    nbr, w = build_affinity_graph(embeddings, voxel_coords, valid, k=k,
-                                  sharpen=sharpen, knn_mode=knn_mode,
-                                  knn_radius=knn_radius, knn_candidates=knn_candidates)
+    with profiling.span("graph"):
+        nbr, w = build_affinity_graph(embeddings, voxel_coords, valid, k=k,
+                                      sharpen=sharpen, knn_mode=knn_mode,
+                                      knn_radius=knn_radius, knn_candidates=knn_candidates)
     M = feats.shape[0]
-    if spmm_mode == "banded" and M > band:
-        code = torch.where(valid, hilbert_code(torch.clamp(voxel_coords, min=0)),
-                           2 ** 30)
-        order = torch.argsort(code, stable=True)
-        rank = torch.empty_like(order)
-        rank[order] = torch.arange(M, device=order.device)
-        w_h = w[order]
-        nbr_h = rank[nbr.long()[order]]
-        feats_h = feats[order]
-        op = build_banded_operator(w_h, nbr_h, band=band, max_residual=max_residual)
-        # the JAX lax.cond on n_dropped (:595-603): one host read per scene
-        n_dropped = int(op.n_dropped)
-        if n_dropped > 0:
-            del op
-            out_h = iterate_pooling(w_h, nbr_h, feats_h, num_iterations)
-        else:
-            out_h = iterate_pooling_banded(op, feats_h, num_iterations, band=band)
-        return out_h[rank], n_dropped
-    return iterate_pooling(w, nbr, feats, num_iterations), 0
+    with profiling.span("smooth"):
+        if spmm_mode == "banded" and M > band:
+            code = torch.where(valid, hilbert_code(torch.clamp(voxel_coords, min=0)),
+                               2 ** 30)
+            order = torch.argsort(code, stable=True)
+            rank = torch.empty_like(order)
+            rank[order] = torch.arange(M, device=order.device)
+            w_h = w[order]
+            nbr_h = rank[nbr.long()[order]]
+            feats_h = feats[order]
+            op = build_banded_operator(w_h, nbr_h, band=band, max_residual=max_residual)
+            # the JAX lax.cond on n_dropped (:595-603): one host read per scene
+            n_dropped = int(profiling.host_read(op.n_dropped))
+            if n_dropped > 0:
+                del op
+                out_h = iterate_pooling(w_h, nbr_h, feats_h, num_iterations)
+            else:
+                out_h = iterate_pooling_banded(op, feats_h, num_iterations, band=band)
+            return out_h[rank], n_dropped
+        return iterate_pooling(w, nbr, feats, num_iterations), 0

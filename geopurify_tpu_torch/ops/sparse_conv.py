@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from geopurify_tpu_torch.parallel.mesh import all_reduce_sum
+from geopurify_tpu_torch.utils import profiling
 
 
 # geopurify_tpu/ops/sparse_conv.py:34
@@ -176,10 +177,10 @@ def build_zstack_table(
             & (t_mid >= M).repeat_interleave(2, dim=1)).T       # [18, M]
     cnt = mask.sum(1)
     B = res_budget
-    tap, row = torch.nonzero(mask, as_tuple=True)              # tap-major, rows ascending
+    tap, row = profiling.nonzero(mask, as_tuple=True)              # tap-major, rows ascending
     rank = torch.arange(tap.shape[0], device=dev) - (torch.cumsum(cnt, 0) - cnt)[tap]
     keep = rank < B
-    tap, row, rank = tap[keep], row[keep], rank[keep]
+    tap, row, rank = (profiling.masked(x, keep) for x in (tap, row, rank))
     dst = torch.full((18, B), M, dtype=neighbor_idx.dtype, device=dev)
     src = torch.full((18, B), M, dtype=neighbor_idx.dtype, device=dev)
     dst[tap, rank] = row.to(dst.dtype)
@@ -207,7 +208,7 @@ def _conv_zstack(features, zt: ZStackTable, weights, valid):
     for c in (0, 1, 2, 3, 5, 6, 7, 8):
         acc += _mm32(H[t_mid[:, c]], Wz[c])
     f_pad = torch.cat([features, zero])
-    for t, n in enumerate(zt.res_cnt.tolist()):
+    for t, n in enumerate(profiling.host_read(zt.res_cnt).tolist()):
         if n:
             dst = zt.res_dst[t, :n].long()
             acc[dst] = acc[dst] + _mm32(f_pad[zt.res_src[t, :n].long()],
@@ -229,7 +230,7 @@ def sparse_conv3(
     training step keeps the plain table and ``_Conv3``'s backward."""
     if isinstance(neighbor_idx, ZStackTable):
         zt = neighbor_idx
-        if bool(zt.overflow):
+        if bool(profiling.host_read(zt.overflow)):
             ZSTACK_ROUTES["overflow"] += 1
             out = _conv_core(features, zt.nbr, weights, valid)
         else:

@@ -78,15 +78,13 @@ from geopurify_tpu_torch.config import (
 )
 from geopurify_tpu_torch.data.batch import SceneBatch, build_scene
 from geopurify_tpu_torch.models.pipeline import GeoPurifyPipeline
-from geopurify_tpu_torch.ops import band as band_mod
-from geopurify_tpu_torch.ops import infonce as nce_mod
 from geopurify_tpu_torch.ops.contrastive import sample_contrastive_pairs_hybrid
 from geopurify_tpu_torch.ops.knn import knn_anchors_grid, knn_search
 from geopurify_tpu_torch.parallel.mesh import init_distributed, make_mesh, spawn
 from geopurify_tpu_torch.parallel.view_parallel import sharded_lift_scene
 from geopurify_tpu_torch.run.optim import make_optimizer
 from geopurify_tpu_torch.run.train import TrainState, make_train_step
-from geopurify_tpu_torch.utils.profiling import compiled_costs, mfu_table
+from geopurify_tpu_torch.utils.profiling import compiled_costs, launch_counts, mfu_table
 from geopurify_tpu_torch.utils.seeding import (
     query_prompts,
     seed_lecun,
@@ -223,12 +221,6 @@ def metric_and_baseline(args, V: int) -> Tuple[str, Optional[float]]:
     if args.views and not args.preset_scale:
         baseline = 1.0 / (3.8 + 0.15 * V)
     return metric, baseline
-
-
-def launch_counts() -> Dict[str, int]:
-    return {"banded_window_matmul": band_mod.banded_window_matmul.launches,
-            "info_nce_fwd": nce_mod.info_nce_fwd.launches,
-            "info_nce_bwd": nce_mod.info_nce_bwd.launches}
 
 
 # ---------------------------------------------------------------------------

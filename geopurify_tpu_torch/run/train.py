@@ -73,6 +73,7 @@ from geopurify_tpu_torch.utils.checkpoint import (
     restore_checkpoint,
     save_checkpoint_with_retry as save_checkpoint,
 )
+from geopurify_tpu_torch.utils import profiling
 from geopurify_tpu_torch.utils.profiling import StageTimer
 
 log = logging.getLogger("geopurify.train")
@@ -124,19 +125,23 @@ def make_train_step(pipeline: GeoPurifyPipeline, mesh: Optional[Mesh] = None):
     bn_group = group if pipeline.cfg.parallel.sync_batchnorm else None
 
     def step(state: TrainState, scene: SceneBatch, f2d, f_teacher, pairs=None):
-        state.optimizer.zero_grad()
-        gen = None if pairs is not None else rank_generator(state.generator, rank)
-        loss, _ = pipeline.stage1_loss(gen, scene, f2d, f_teacher, train=True, pairs=pairs,
-                                       group=bn_group)
-        loss.backward()
-        loss = loss.detach()
-        if group is not None:
-            student = pipeline.student
-            all_reduce_mean_([p.grad for p in student.parameters()]
-                             + list(student.buffers()) + [loss.reshape(1)], mesh.dp, group)
-        state.optimizer.step()
-        state.step += 1
-        return loss
+        with profiling.span("step", item=True):
+            state.optimizer.zero_grad()
+            gen = None if pairs is not None else rank_generator(state.generator, rank)
+            loss, _ = pipeline.stage1_loss(gen, scene, f2d, f_teacher, train=True,
+                                           pairs=pairs, group=bn_group)
+            with profiling.span("backward"):
+                loss.backward()
+                loss = loss.detach()
+                if group is not None:
+                    student = pipeline.student
+                    all_reduce_mean_([p.grad for p in student.parameters()]
+                                     + list(student.buffers()) + [loss.reshape(1)],
+                                     mesh.dp, group)
+            with profiling.span("optimizer"):
+                state.optimizer.step()
+            state.step += 1
+            return loss
 
     return step
 
@@ -145,8 +150,8 @@ def rank_generator(shared: torch.Generator, rank: int) -> torch.Generator:
     """A generator of one step and rank: a seed drawn from ``shared`` (the
     same draw on every rank, which keeps ``shared`` in step across them),
     offset by ``rank``."""
-    seed = int(torch.randint(0, 1 << 62, (1,), generator=shared,
-                             device=shared.device).item())
+    seed = int(profiling.host_read(torch.randint(
+        0, 1 << 62, (1,), generator=shared, device=shared.device)))
     return torch.Generator(device=shared.device).manual_seed(seed + rank)
 
 
@@ -382,32 +387,38 @@ def main(argv=None) -> Optional[TrainState]:
     metrics_path = os.path.join(cfg.train.save_path, "metrics.jsonl")
     os.makedirs(cfg.train.save_path, exist_ok=True)
     t0 = time.time()
-    for epoch in range(cfg.train.epochs):
-        for it in range(steps_per_epoch):
-            step_in = inputs(it)
-            if mesh.group is not None:
-                # every rank enters the step's collectives, or none does
-                ready = torch.tensor([float(step_in is not None)], device=dev)
-                if all_reduce_(ready, torch.distributed.ReduceOp.MIN).item() == 0:
+    with profiling.recording(dev):
+        for epoch in range(cfg.train.epochs):
+            for it in range(steps_per_epoch):
+                step_in = inputs(it)
+                if mesh.group is not None:
+                    # every rank enters the step's collectives, or none does
+                    ready = torch.tensor([float(step_in is not None)], device=dev)
+                    if all_reduce_(ready, torch.distributed.ReduceOp.MIN).item() == 0:
+                        continue
+                if step_in is None:
+                    continue            # an unusable scene: no step
+                _, batch, f2d, ft = step_in
+                with timer.stage("train_step", block_on=dev):
+                    loss = train_step(state, batch, f2d, ft)
+                if state.step % cfg.train.print_freq != 0:
                     continue
-            if step_in is None:
-                continue            # an unusable scene: no step
-            _, batch, f2d, ft = step_in
-            with timer.stage("train_step", block_on=dev):
-                loss = train_step(state, batch, f2d, ft)
-            if lead and state.step % cfg.train.print_freq == 0:
-                # accumulation ticks the schedule once per k raw steps
-                lr = schedule(state.step // max(cfg.train.grad_accum_steps, 1))
-                rec = {"step": state.step, "epoch": epoch, "loss": float(loss),
-                       "lr": lr, "elapsed_s": time.time() - t0,
-                       "scenes_per_sec": state.step * n_dp / max(time.time() - t0, 1e-9),
-                       "stages": timer.summary()}
-                log.info("%s", rec)
-                with open(metrics_path, "a") as f:
-                    f.write(json.dumps(rec) + "\n")
-        if lead and (epoch + 1) % cfg.train.save_freq == 0:
-            save_checkpoint(ckpt_dir, state.state_dict(), state.step)
-            log.info("checkpointed at step %d", state.step)
+                # the parts of the steps since the last record (every rank
+                # takes its own, so that none keeps them)
+                parts = profiling.mean_ms(profiling.RECORDER.take("step"))
+                if lead:
+                    # accumulation ticks the schedule once per k raw steps
+                    lr = schedule(state.step // max(cfg.train.grad_accum_steps, 1))
+                    rec = {"step": state.step, "epoch": epoch, "loss": float(loss),
+                           "lr": lr, "elapsed_s": time.time() - t0,
+                           "scenes_per_sec": state.step * n_dp / max(time.time() - t0, 1e-9),
+                           "stages": timer.summary(), "step_parts": parts}
+                    log.info("%s", rec)
+                    with open(metrics_path, "a") as f:
+                        f.write(json.dumps(rec) + "\n")
+            if lead and (epoch + 1) % cfg.train.save_freq == 0:
+                save_checkpoint(ckpt_dir, state.state_dict(), state.step)
+                log.info("checkpointed at step %d", state.step)
     if lead:
         save_checkpoint(ckpt_dir, state.state_dict(), state.step)
     log.info("done: %d steps in %.1fs", state.step, time.time() - t0)

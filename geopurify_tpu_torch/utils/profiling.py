@@ -1,12 +1,35 @@
-"""Per-stage wall-clock timing, device traces, and work counts.
+"""Spans and counters, per-stage timing, and work counts.
+
+One recorder of spans and counters serves the port. ``span(name)`` times
+a block: its name, its path from the root (``scene/pool_classify/graph``),
+its parent, the item it belongs to (the scene or step that a root span
+opened with ``item=True`` numbers), the host clock at both ends
+(``time.perf_counter_ns``) and, on a card, a CUDA event recorded on the
+current stream at both ends, taken from a pool: no synchronize, no host
+read. ``count(name, n)`` adds to a counter of the current item. The hot
+paths make each of their device-to-host reads through ``host_read(x)``,
+``nonzero(x)`` or ``masked(x, mask)``, which count ``host_syncs``.
+
+``recording(device)`` is the one switch: inside it, spans and counters go
+to ``RECORDER`` (``evaluate_scene(profile=True)`` opens it for its scene,
+the Stage-1 trainer for its steps). When the outermost block exits, or
+when ``Recorder.items`` is read, the recorder synchronizes once, resolves
+the closed spans' device intervals (``elapsed_time`` against its reference
+event) and folds each finished item into a summary kept in a bounded
+history; closed spans and counters of no item are dropped then. Off,
+``span`` returns one shared null context and ``count`` returns at once: a
+global load and a branch, no event, no allocation.
 
 Port of geopurify_tpu/utils/profiling.py: ``StageTimer``'s named
 stages accumulate seconds across steps, with a summary, a printable report
-and a JSONL record; a stage given ``block_on`` (a tensor or a device)
-synchronises its CUDA device before the clock stops, as the JAX version
-blocks on its arrays. ``trace(log_dir)`` records a ``torch.profiler``
-trace (CPU and, on a card, CUDA activity) into ``log_dir`` for TensorBoard
-or Perfetto, where JAX uses ``jax.profiler``; a no-op without a directory.
+and a JSONL record. Here each stage is a span of the timer's own recorder:
+a stage given ``block_on`` (a tensor or a device) on a card takes its
+span's device interval, where the JAX version blocks on its arrays, and
+the intervals are resolved when a summary is taken.
+
+The hand kernels' wrappers register here (``counts_launches``): each
+one's ``launches`` attribute counts its launches, and ``launch_counts``
+reads them all.
 
 ``compiled_costs`` counts the operations and bytes of one call, where JAX
 reads XLA's cost analysis of the compiled call: the registered FLOP
@@ -24,39 +47,317 @@ import functools
 import json
 import logging
 import time
-from collections import defaultdict
-from typing import Any, Dict, Iterator, Optional
+from collections import defaultdict, deque
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
 log = logging.getLogger("geopurify.profiling")
 
+# the wrappers of the hand kernels, by name (``counts_launches``)
+_LAUNCH_COUNTED: Dict[str, Callable] = {}
+
+HISTORY = 1024      # finished items a recorder keeps, newest last
+
+
+def counts_launches(fn: Callable) -> Callable:
+    """Registers a hand kernel's wrapper, whose ``launches`` attribute (set
+    to 0 here) the wrapper adds one to at each launch."""
+    fn.launches = 0
+    _LAUNCH_COUNTED[fn.__name__] = fn
+    return fn
+
+
+def launch_counts() -> Dict[str, int]:
+    """Each registered wrapper's launches so far, by name."""
+    return {name: fn.launches for name, fn in _LAUNCH_COUNTED.items()}
+
+
+class Span:
+    """One timed block of a ``Recorder``; its own context manager. ``t0`` /
+    ``t1``: host ns; ``d0`` / ``d1``: device seconds after the recorder's
+    reference, set when the recorder resolves (the host clock's on the
+    CPU)."""
+
+    __slots__ = ("rec", "name", "path", "parent", "item", "is_item", "sync",
+                 "t0", "t1", "e0", "e1", "d0", "d1")
+
+    def __init__(self, rec: "Recorder", name: str, is_item: bool, sync: bool):
+        self.rec, self.name, self.is_item, self.sync = rec, name, is_item, sync
+        self.t1 = self.d0 = self.d1 = None
+
+    def __enter__(self) -> "Span":
+        rec = self.rec
+        parent = rec.stack[-1] if rec.stack else None
+        self.parent = parent
+        self.path = self.name if parent is None else f"{parent.path}/{self.name}"
+        if self.is_item:
+            self.item = rec.n_items
+            rec.n_items += 1
+        else:
+            self.item = None if parent is None else parent.item
+        rec.stack.append(self)
+        rec.spans.append(self)
+        self.e0 = rec._event()
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        rec = self.rec
+        self.e1 = rec._event()
+        if self.sync and self.e1 is not None:
+            torch.cuda.synchronize(rec.device)
+        self.t1 = time.perf_counter_ns()
+        rec.stack.pop()
+
+    @property
+    def host_s(self) -> float:
+        return (self.t1 - self.t0) * 1e-9
+
+    @property
+    def device_s(self) -> float:
+        return self.d1 - self.d0
+
+
+class Recorder:
+    """Spans and per-item counters on one device (``cuda`` where there is
+    a card and none is given, else ``cpu``); finished items are folded
+    into ``history`` (``items``)."""
+
+    def __init__(self, device=None):
+        self.device = None if device is None else torch.device(device)
+        self.history: deque = deque(maxlen=HISTORY)
+        self._free: List[Any] = []      # resolved CUDA events, reused
+        self.clear()
+
+    def clear(self) -> None:
+        """Forgets every span, counter and finished item."""
+        self.spans: List[Span] = []
+        self.stack: List[Span] = []
+        self.counters: Dict[Tuple[Optional[int], str], int] = defaultdict(int)
+        self.n_items = 0
+        self.history.clear()
+        self._ref: Optional[Tuple[int, Any]] = None    # (host ns, CUDA event)
+
+    def span(self, name: str, item: bool = False, sync: bool = False) -> Span:
+        """A span of this recorder; ``item`` numbers a new item (a root:
+        the scene, the step), ``sync`` synchronizes the device before the
+        host clock stops."""
+        return Span(self, name, item, sync)
+
+    def count(self, name: str, n: int = 1) -> None:
+        item = self.stack[-1].item if self.stack else None
+        self.counters[(item, name)] += n
+
+    def _event(self):
+        if self.device is None:
+            self.device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        cuda = self.device.type == "cuda"
+        if self._ref is None:
+            self._ref = (time.perf_counter_ns(), self._record() if cuda else None)
+        return self._record() if cuda else None
+
+    def _record(self):
+        e = self._free.pop() if self._free else torch.cuda.Event(enable_timing=True)
+        e.record(torch.cuda.current_stream(self.device))
+        return e
+
+    def resolve(self) -> None:
+        """Device times of every closed span not yet resolved: one
+        synchronize, then ``elapsed_time`` against the reference event;
+        the spans' events go back to the pool."""
+        todo = [s for s in self.spans if s.d1 is None and s.t1 is not None]
+        if not todo:
+            return
+        ref_ns, ref = self._ref
+        if ref is not None:
+            torch.cuda.synchronize(self.device)
+        for s in todo:
+            if ref is None:
+                s.d0, s.d1 = (s.t0 - ref_ns) * 1e-9, (s.t1 - ref_ns) * 1e-9
+            else:
+                s.d0 = ref.elapsed_time(s.e0) * 1e-3
+                s.d1 = ref.elapsed_time(s.e1) * 1e-3
+                self._free += (s.e0, s.e1)
+            s.e0 = s.e1 = None
+
+    def drain(self) -> List[Span]:
+        """The closed spans, resolved and taken out of the recorder."""
+        self.resolve()
+        done = [s for s in self.spans if s.t1 is not None]
+        self.spans = [s for s in self.spans if s.t1 is None]
+        return done
+
+    def fold(self) -> None:
+        """Resolves the closed spans, moves each finished item into
+        ``history`` as its summary (``items``), and drops the closed spans
+        and the counters of no item."""
+        self.resolve()
+        out = {s.item: {"root": s.name, "spans": {}, "counts": {}}
+               for s in self.spans if s.is_item and s.t1 is not None}
+        rest = []
+        for s in self.spans:
+            it = out.get(s.item)
+            if it is not None:
+                acc = it["spans"].setdefault(s.path, {"host_s": 0.0, "device_s": 0.0, "n": 0})
+                acc["host_s"] += s.host_s
+                acc["device_s"] += s.device_s
+                acc["n"] += 1
+            elif s.t1 is None or s.item is not None:
+                rest.append(s)
+        for key in [k for k in self.counters if k[0] is None or k[0] in out]:
+            n = self.counters.pop(key)
+            if key[0] is not None:
+                out[key[0]]["counts"][key[1]] = n
+        self.spans = rest
+        self.history.extend(out.values())
+        if not rest and self._ref is not None:
+            if self._ref[1] is not None:
+                self._free.append(self._ref[1])
+            self._ref = None
+
+    def items(self, root: str) -> List[Dict[str, dict]]:
+        """The finished items whose root span is named ``root``, oldest
+        first (at most ``HISTORY``): ``spans``, each path's host and device
+        seconds summed over its occurrences in the item and their number;
+        ``counts``, the item's counters."""
+        self.fold()
+        return [it for it in self.history if it["root"] == root]
+
+    def take(self, root: str) -> List[Dict[str, dict]]:
+        """``items(root)``, taken out of the history."""
+        got = self.items(root)
+        kept = [it for it in self.history if it["root"] != root]
+        self.history.clear()
+        self.history.extend(kept)
+        return got
+
+
+RECORDER = Recorder()
+_NULL = contextlib.nullcontext()
+_depth = 0      # open ``recording`` blocks
+
+
+@contextlib.contextmanager
+def recording(device=None) -> Iterator[Recorder]:
+    """Records spans and counters into ``RECORDER`` for the block (blocks
+    nest); ``device`` is the recorder's while it holds no span. The
+    outermost block folds the recorder when it exits (``Recorder.fold``),
+    or forgets its spans and counters where the block raised."""
+    global _depth
+    if device is not None and not RECORDER.spans:
+        RECORDER.device = torch.device(device)
+    _depth += 1
+    ok = False
+    try:
+        yield RECORDER
+        ok = True
+    finally:
+        _depth -= 1
+        if not _depth:
+            if ok:
+                RECORDER.fold()
+            else:
+                RECORDER.spans, RECORDER.stack, RECORDER._ref = [], [], None
+                RECORDER.counters.clear()
+
+
+def span(name: str, item: bool = False, sync: bool = False):
+    """A span of ``RECORDER`` (``Recorder.span``) while recording is on,
+    else the shared null context (entered, it gives None)."""
+    if not _depth:
+        return _NULL
+    return Span(RECORDER, name, item, sync)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Adds ``n`` to the current item's counter ``name`` while recording."""
+    if _depth:
+        RECORDER.count(name, n)
+
+
+@contextlib.contextmanager
+def stage_span(name: str, seconds: Optional[dict], device) -> Iterator[None]:
+    """``span(name)``; given a dict ``seconds``, the span is recorded
+    (recording on for it, on ``device``), the device is synchronized before
+    its host clock stops, and its host seconds go to ``seconds[name]``: the
+    stage spans of ``evaluate_scene(profile=True)``."""
+    if seconds is None:
+        with span(name):
+            yield
+        return
+    with recording(device), span(name, sync=True) as s:
+        yield
+    seconds[name] = s.host_s
+
+
+def host_read(x: torch.Tensor) -> torch.Tensor:
+    """``x.cpu()``: the device's queue drains first. Counts one
+    ``host_syncs`` while recording."""
+    if _depth:
+        RECORDER.count("host_syncs")
+    return x.cpu()
+
+
+def nonzero(x: torch.Tensor, as_tuple: bool = False):
+    """``torch.nonzero(x, as_tuple=as_tuple)``, whose size is read back
+    from the device. Counts one ``host_syncs`` while recording."""
+    if _depth:
+        RECORDER.count("host_syncs")
+    return torch.nonzero(x, as_tuple=as_tuple)
+
+
+def masked(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``x[mask]`` for a boolean ``mask``, whose size is read back from the
+    device. Counts one ``host_syncs`` while recording."""
+    if _depth:
+        RECORDER.count("host_syncs")
+    return x[mask]
+
+
+def mean_ms(items: List[Dict[str, dict]]) -> Dict[str, float]:
+    """Each span path's device milliseconds an item, mean over ``items``
+    (``Recorder.items``)."""
+    tot: Dict[str, float] = defaultdict(float)
+    for it in items:
+        for path, v in it["spans"].items():
+            tot[path] += v["device_s"]
+    return {p: round(1e3 * t / len(items), 2) for p, t in sorted(tot.items())}
+
 
 # geopurify_tpu/utils/profiling.py:20
 class StageTimer:
-    """Accumulates wall time per named stage across steps."""
+    """Accumulates time per named stage across steps. Each stage is a span
+    of the timer's own recorder on the device of ``block_on`` (a tensor or
+    a device; the host without one): on a card, the stage's time is its
+    span's device interval, taken without a synchronize and resolved when
+    a summary is taken."""
 
     def __init__(self):
         self.totals: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
+        self._recorders: Dict[torch.device, Recorder] = {}
 
     @contextlib.contextmanager
     def stage(self, name: str, block_on: Any = None) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
+        if isinstance(block_on, torch.Tensor):
+            dev = block_on.device
+        else:
+            dev = torch.device("cpu" if block_on is None else block_on)
+        rec = self._recorders.get(dev)
+        if rec is None:
+            rec = self._recorders[dev] = Recorder(dev)
+        with rec.span(name):
             yield
-        finally:
-            if block_on is not None:
-                dev = block_on.device if isinstance(block_on, torch.Tensor) else torch.device(block_on)
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-            self.observe(name, time.perf_counter() - t0)
 
     def observe(self, name: str, seconds: float) -> None:
         self.totals[name] += seconds
         self.counts[name] += 1
 
     def summary(self) -> Dict[str, Dict[str, float]]:
+        for rec in self._recorders.values():
+            for s in rec.drain():
+                self.observe(s.name, s.device_s)
         return {
             k: {"total_s": round(self.totals[k], 4), "count": self.counts[k],
                 "mean_ms": round(1000 * self.totals[k] / max(self.counts[k], 1), 2)}
@@ -76,23 +377,6 @@ class StageTimer:
     def dump_jsonl(self, path: str, **extra) -> None:
         with open(path, "a") as f:
             f.write(json.dumps({"stages": self.summary(), **extra}) + "\n")
-
-
-# geopurify_tpu/utils/profiling.py:68
-@contextlib.contextmanager
-def trace(log_dir: Optional[str]) -> Iterator[None]:
-    """A ``torch.profiler`` trace of the block, written to ``log_dir`` as a
-    Chrome / TensorBoard trace; no-op when ``log_dir`` is None or empty."""
-    if not log_dir:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
-        yield
 
 
 # ---------------------------------------------------------------------------

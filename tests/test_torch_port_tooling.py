@@ -1,15 +1,13 @@
 """The port's visualization and profiling tools held against the JAX
 package: the same colourings, statistics and PLY bytes for the same
 inputs, the same report and JSONL record, plus the properties
-tests/test_utils_viz.py checks; ``trace`` writes a torch.profiler trace and
-is a no-op without a directory."""
+tests/test_utils_viz.py checks."""
 
 import json
 import os
 
 import numpy as np
 import pytest
-import torch
 
 from geopurify_tpu.utils import profiling as jprof
 from geopurify_tpu.utils import visualization as jviz
@@ -131,13 +129,3 @@ def test_stage_timer_report_and_jsonl_equal_jaxs(tmp_path):
     rec = [json.loads(line) for line in open(paths[0])]
     assert [r["step"] for r in rec] == [3, 4] and rec[0]["stages"]["a"]["count"] == 2
 
-
-def test_trace_writes_a_profile_and_is_a_no_op_without_a_dir(tmp_path):
-    with tprof.trace(None):
-        x = torch.ones(3) + 1
-    assert x.sum() == 6
-    d = tmp_path / "trace"
-    with tprof.trace(str(d)):
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    files = list(d.glob("*.json"))
-    assert files and "traceEvents" in json.loads(files[0].read_text())

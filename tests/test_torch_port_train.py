@@ -366,6 +366,8 @@ def test_train_main_synthetic_end_to_end(tmp_path):
     assert [r["step"] for r in recs] == [1, 2]
     assert all(np.isfinite(r["loss"]) and r["loss"] > 0 for r in recs)
     assert {"lift_2d", "teacher_3d", "train_step"} <= set(recs[-1]["stages"])
+    assert {"step", "step/sampler", "step/forward", "step/loss", "step/backward",
+            "step/optimizer"} == set(recs[-1]["step_parts"])
     assert (out / "ckpt" / "step_2.pt").exists()
     resumed = ttrain.main(base + ["--steps-per-epoch", "1"] + overrides
                           + [f"train.resume={out / 'ckpt'}"])
