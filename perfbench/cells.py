@@ -1,6 +1,8 @@
 """A cell's files, found by name: ``workloads/<cell>.json`` names its
-configuration (``configs/<config>.json``), its traffic, its overrides and
-the limits of its comparison; ``work/<cell>.json`` holds its counted work.
+configuration (``configs/<config>.json``), its traffic, its overrides, the
+limits of its comparison and, under ``runner``, the module of
+``perfbench/`` that runs it (without the key, ``stage1`` or ``stage2``
+from its ``stage``); ``work/<cell>.json`` holds its counted work.
 ``program_config`` builds the port's configuration from the same numbers
 the reference reads.
 """
@@ -8,11 +10,17 @@ the reference reads.
 from __future__ import annotations
 
 import copy
+import importlib
 import json
+import re
 from pathlib import Path
 from typing import List
 
 HERE = Path(__file__).resolve().parent
+# the runner of a cell that names none, by its ``stage`` (the item kind
+# the readers key on: 1 a training step, 2 a scene)
+DEFAULT_RUNNER = {1: "stage1", 2: "stage2"}
+MODULE = re.compile(r"^[A-Za-z_][A-Za-z0-9_]*(\.[A-Za-z_][A-Za-z0-9_]*)*$")
 
 
 def _read(kind: str, name: str) -> dict:
@@ -30,10 +38,29 @@ def merge(base: dict, over: dict) -> dict:
     return out
 
 
+def runner_path(name: str) -> Path:
+    """The file of the runner ``name``, a module of ``perfbench/``
+    (``tests.toy_runner`` is ``perfbench/tests/toy_runner.py``); exits
+    naming the file where there is none."""
+    path = HERE / f"{name.replace('.', '/')}.py"
+    if not MODULE.match(name) or not path.is_file():
+        raise SystemExit(f"no runner named {name!r} ({path} is missing)")
+    return path
+
+
+def runner(cell: dict):
+    """The module that runs ``cell`` (the contract: ``run.py``'s docstring)."""
+    runner_path(cell["runner"])
+    return importlib.import_module(f"perfbench.{cell['runner']}")
+
+
 def load_cell(name: str) -> dict:
-    """The workload file with its configuration file under ``config_file``
-    and the configuration as this cell runs it under ``program``."""
+    """The workload file with its runner's name under ``runner`` (the
+    default filled in), its configuration file under ``config_file`` and
+    the configuration as this cell runs it under ``program``."""
     cell = _read("workloads", name)
+    cell.setdefault("runner", DEFAULT_RUNNER.get(cell["stage"], ""))
+    runner_path(cell["runner"])
     conf = _read("configs", cell["config"])
     cell["config_file"] = conf
     cell["program"] = merge(conf["program"], cell.get("overrides", {}))

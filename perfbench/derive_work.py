@@ -1,8 +1,10 @@
-"""Derive ``work/<cell>.json``: the operations of one scene (Stage 2) or one
-step (Stage 1) of a cell, counted once over the benchmark's own plain
-reference at the cell's shapes, and the hand kernels' operations and bytes
-a launch. The count is committed as data, so that it reads the same work
-whatever implements it.
+"""Derive ``work/<cell>.json``: the operations of one item of a cell (a
+scene in Stage 2, a step in Stage 1), counted once over the benchmark's
+own plain reference at the cell's shapes, and the hand kernels' operations
+and bytes a launch. The count is committed as data, so that it reads the
+same work whatever implements it. The cell's runner counts its item
+(``work(cell)``, as ``stage1.work`` and ``stage2.work`` do) with the
+helpers here.
 
     python3 -m perfbench.derive_work <cell> [<cell> ...]
 
@@ -27,8 +29,7 @@ from typing import Dict
 
 import torch
 
-from perfbench import cells, peaks
-from perfbench.gen.scene import build_scene
+from perfbench import cells
 
 ROW_TILE = 2048      # the port's banded operator's row tile
 
@@ -78,59 +79,9 @@ def student_flops(program: dict, scene: dict, backward: bool) -> Dict[str, float
     return {"student": fwd * (3 if backward else 1)}
 
 
-def stage2(cell: dict) -> dict:
-    prog, sc = cell["program"], cell["traffic"]["scene"]
-    n_cls = cells.n_classes(cell)
-    hw = tuple(prog["xdecoder"]["mask_shape"])
-    P, M, V, Pv = sc["points"], sc["voxels"], sc["views"], sc["view_points"]
-    pc = prog["pooling"]
-    C = prog["xdecoder"]["hidden_dim"]
-    k, E = pc["knn_k"], prog["student"]["embed_dim"]
-    n_rooms = cell["traffic"]["pool"]
-    student, n_valid = 0.0, 0.0
-    for i in range(n_rooms):
-        # the room of the pool's scene i (``stage2.pool_scene``); one view
-        scene = build_scene([0, i], P, M, 1, Pv, hw, geometry_seed=i)
-        student += student_flops(prog, scene, backward=False)["student"] / n_rooms
-        n_valid += int(scene["voxel_valid"].sum()) / n_rooms
-    parts = {
-        "xdecoder": V * xdecoder_flops_per_view(prog, n_cls, hw),
-        "lift": V * lift_flops_per_view(prog, n_cls, Pv, hw),
-        "fuse": 2.0 * P * prog["xdecoder"]["fusion_top_k"] * C,
-        "student": student,
-        "projection": 2.0 * n_valid * pc["feature_dim"] * n_cls,
-        "graph": 2.0 * n_valid * k * E,
-        "smoothing": pc["num_iterations"] * 2.0 * n_valid * k * n_cls,
-    }
-    n_t = -(-M // ROW_TILE)
-    f1, b1 = peaks.k1_work(M, M, pc["band"], n_cls, n_t)
-    return {"parts": parts, "flops_per_item": sum(parts.values()),
-            "k1": {"R": M, "M": M, "band": pc["band"], "C": n_cls, "n_t": n_t,
-                   "flops": f1, "bytes": b1, "launches_per_item": pc["num_iterations"]}}
-
-
-def stage1(cell: dict) -> dict:
-    prog, tr = cell["program"], cell["traffic"]
-    cc = prog["contrastive"]
-    P, M = tr["scene"]["points"], tr["scene"]["voxels"]
-    scene = build_scene([0, 0], P, M, 1, 64, (8, 8))
-    A, D, E = cc["num_anchors"], tr["teacher_dim"], prog["student"]["embed_dim"]
-    NEG = cc["num_negatives"]
-    parts = {
-        "sampler": 2.0 * A * P * D + 2.0 * A * cc["spatial_knn_k"] * D,
-        **student_flops(prog, scene, backward=True),
-        "loss": peaks.k2_work(A, NEG, E, False)[0] + peaks.k2_work(A, NEG, E, True)[0],
-    }
-    fwd, bwd = peaks.k2_work(A, NEG, E, False), peaks.k2_work(A, NEG, E, True)
-    return {"parts": parts, "flops_per_item": sum(parts.values()),
-            "k2_fwd": {"A": A, "NEG": NEG, "E": E, "flops": fwd[0], "bytes": fwd[1]},
-            "k2_bwd": {"A": A, "NEG": NEG, "E": E, "flops": bwd[0], "bytes": bwd[1]}}
-
-
 def derive(name: str) -> dict:
     cell = cells.load_cell(name)
-    work = (stage2 if cell["stage"] == 2 else stage1)(cell)
-    return dict(cell=name, **work)
+    return dict(cell=name, **cells.runner(cell).work(cell))
 
 
 def main(argv=None) -> int:

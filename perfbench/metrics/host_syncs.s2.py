@@ -11,4 +11,4 @@ UNIT = "syncs/scene"
 
 
 def read(rec):
-    return count_mean(rec, "host_syncs")
+    return count_mean(rec, "scene", "host_syncs")

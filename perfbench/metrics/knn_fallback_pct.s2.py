@@ -9,4 +9,4 @@ UNIT = "%"
 
 
 def read(rec):
-    return count_pct(rec, "knn_self.failed", "knn_self.queries")
+    return count_pct(rec, "scene", "knn_self.failed", "knn_self.queries")

@@ -4,13 +4,44 @@ one cell, one JSON line as the last line of standard output.
     python3 -m perfbench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 A cell (``workloads/<cell>.json``) names its configuration
-(``configs/<config>.json``), the traffic the generator draws from the seed
-and the limits of the comparison that decides ``correct``. ``--trace 0``
-reports the cell's end-to-end metrics, ``--trace 1`` its per-layer ones:
-every reader in ``metrics/`` that finds something to read in the traced
-run. Logs and the numbers compared, each beside its limit, go to standard
-error; the run exits 1 without a result when the card is missing, and 3
-when a module of JAX or of the JAX package has been loaded.
+(``configs/<config>.json``), the traffic the generator draws from the seed,
+the limits of the comparison that decides ``correct`` and its runner.
+``--trace 0`` reports the cell's end-to-end metrics, ``--trace 1`` its
+per-layer ones: every reader in ``metrics/`` that finds something to read
+in the traced run. Logs and the numbers compared, each beside its limit,
+go to standard error; the run exits 1 without a result when the card is
+missing, and 3 when a module of JAX or of the JAX package has been loaded.
+
+The runner is the module of ``perfbench/`` that the cell's ``runner`` key
+names (``cells.load_cell`` fills in ``stage1`` or ``stage2`` from its
+``stage`` where there is none), so that a cell of a new kind comes as new
+files. It has three functions:
+
+- ``run(cell, seed, seconds, trace, device, say, **hooks)``: set-up, the
+  window and the comparison, returning ``attempted`` (items completed in
+  the window), ``setup_end`` (``time.perf_counter()`` at the window's
+  opening), optionally ``setup_excluded`` (seconds of set-up that are the
+  benchmark's own, left out of ``setup_s``), ``e2e`` (the end-to-end
+  metrics but ``peak_gib`` and ``setup_s``, by name), ``peak_window`` and
+  ``peak_run`` (bytes allocated at most in the window and in the run),
+  ``numbers`` (every number compared, by the names of the cell's
+  ``limits``) and ``records``: for the readers of its ``stage`` (the item
+  kind they key on: 1 a training step, 2 a scene) ``item_seconds`` (the
+  wall seconds of each item of the window), ``trace_items`` (the items
+  under the profiler) and, with ``trace``, ``trace`` (``Window.result``)
+  and ``split`` (Stage 1: a dict a step, ``sampler`` and ``update``
+  seconds) or ``stage_seconds`` (Stage 2: a dict a scene of its stage
+  spans); the span readers (``spans.py``) take the program's recorded
+  items of the stage's root, ``step`` or ``scene``, as many as the steady
+  entries of ``split`` or ``stage_seconds``. ``hooks`` plant faults
+  (``faults.py``);
+- ``work(cell)``: the counted work of an item (``derive_work``);
+- ``control(cell, seed, device, lowp=None)``: the numbers that ``run``
+  compares, with the plain reference a precision step down in the
+  program's place (``calibrate``).
+
+``stage1.run`` has seams (its docstring) through which a runner in another
+file reuses Stage 1's set-up, window and comparison.
 """
 
 from __future__ import annotations
@@ -70,10 +101,9 @@ def read_metrics(rec: dict) -> dict:
 def run_cell(cell: dict, seed: int, seconds: float, trace: bool, device, **hooks) -> dict:
     """One run of ``cell`` on ``device``: the result's keys but ``device``'s
     own name, with the per-layer records under ``records``."""
-    from perfbench import cells, compare, stage1, stage2
+    from perfbench import cells, compare
 
-    runner = {1: stage1, 2: stage2}[cell["stage"]]
-    out = runner.run(cell, seed, seconds, trace, device, say, **hooks)
+    out = cells.runner(cell).run(cell, seed, seconds, trace, device, say, **hooks)
     checks = compare.judge(out["numbers"], cell["limits"])
     correct = all(c["ok"] for c in checks.values())
     if trace:

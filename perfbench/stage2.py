@@ -23,6 +23,10 @@ from the seed, are labelled again by the plain reference in f32 from the
 same inputs and weights, and the program's answers for them (kept from the
 window) are compared, each number the mean over those scenes
 (``compare.stage2_numbers``).
+
+``work`` counts a scene's operations (``derive_work``); ``control`` runs
+the reference a precision step down in the program's place, or at the
+configuration's own bf16 as the witness (``calibrate``).
 """
 
 from __future__ import annotations
@@ -33,7 +37,9 @@ from typing import Callable, Dict
 
 import torch
 
-from perfbench import cells, compare, refrun
+from perfbench import cells, compare, peaks, refrun
+from perfbench.derive_work import (ROW_TILE, lift_flops_per_view, student_flops,
+                                   xdecoder_flops_per_view)
 from perfbench.gen.scene import build_scene, to_device
 from perfbench.gen.weights import prompts_from_lift, sub_seed, unit_rows
 from perfbench.trace import Window
@@ -104,6 +110,63 @@ def class_prompts(cell: dict, xsd: dict, scene: dict, seed: int) -> torch.Tensor
                           prog["xdecoder"], 0, 1)
     return prompts_from_lift(lift.winner[0], lift.embed_table[0], cells.n_classes(cell),
                              sub_seed(seed, 4))
+
+
+def work(cell: dict) -> dict:
+    """A scene's counted operations (the mean over the pool's rooms) and
+    K1's work a launch."""
+    prog, sc = cell["program"], cell["traffic"]["scene"]
+    n_cls = cells.n_classes(cell)
+    hw = tuple(prog["xdecoder"]["mask_shape"])
+    P, M, V, Pv = sc["points"], sc["voxels"], sc["views"], sc["view_points"]
+    pc = prog["pooling"]
+    C = prog["xdecoder"]["hidden_dim"]
+    k, E = pc["knn_k"], prog["student"]["embed_dim"]
+    n_rooms = cell["traffic"]["pool"]
+    student, n_valid = 0.0, 0.0
+    for i in range(n_rooms):
+        # the room of the pool's scene i (``pool_scene``); one view
+        scene = build_scene([0, i], P, M, 1, Pv, hw, geometry_seed=i)
+        student += student_flops(prog, scene, backward=False)["student"] / n_rooms
+        n_valid += int(scene["voxel_valid"].sum()) / n_rooms
+    parts = {
+        "xdecoder": V * xdecoder_flops_per_view(prog, n_cls, hw),
+        "lift": V * lift_flops_per_view(prog, n_cls, Pv, hw),
+        "fuse": 2.0 * P * prog["xdecoder"]["fusion_top_k"] * C,
+        "student": student,
+        "projection": 2.0 * n_valid * pc["feature_dim"] * n_cls,
+        "graph": 2.0 * n_valid * k * E,
+        "smoothing": pc["num_iterations"] * 2.0 * n_valid * k * n_cls,
+    }
+    n_t = -(-M // ROW_TILE)
+    f1, b1 = peaks.k1_work(M, M, pc["band"], n_cls, n_t)
+    return {"parts": parts, "flops_per_item": sum(parts.values()),
+            "k1": {"R": M, "M": M, "band": pc["band"], "C": n_cls, "n_t": n_t,
+                   "flops": f1, "bytes": b1, "launches_per_item": pc["num_iterations"]}}
+
+
+def control(cell: dict, seed: int, device, lowp=None) -> dict:
+    """The numbers of ``run`` over the first ``check_scenes`` of the pool
+    with the plain reference in the program's place, its X-Decoder's
+    operands in float8 e4m3 and its student in bf16 (``lowp`` "fp8", the
+    control) or its X-Decoder's operands in bf16 (``lowp`` "bf16", the
+    witness), against the reference in f32."""
+    pool = build_pool(seed, cell)
+    xsd, _ = refrun.draw_weights(cell, seed, device)
+    text = class_prompts(cell, xsd, to_device(pool[0], device), seed)
+    del xsd
+    P = cell["traffic"]["scene"]["points"]
+    g = torch.Generator(device="cpu").manual_seed(sub_seed(seed, 6))
+    idx = torch.sort(torch.randperm(P, generator=g)[:LOGIT_SAMPLE]).values.to(device)
+    per_scene = []
+    for j in range(cell["traffic"]["check_scenes"]):
+        scene = to_device(pool[j], device)
+        ref = refrun.stage2_reference(cell, seed, scene, text)
+        low = refrun.stage2_reference(cell, seed, scene, text, lowp=lowp or "fp8")
+        low["logits"] = low["logits"][idx]
+        per_scene.append(compare.stage2_numbers(low, ref, scene["point_valid"], idx))
+        del ref, low
+    return compare.mean_numbers(per_scene)
 
 
 def run(cell: dict, seed: int, seconds: float, trace: bool, device: torch.device,

@@ -1,7 +1,7 @@
 """``BENCHMARK.json`` against the benchmark's contract: keys, names and
 units in the allowed characters, every piece found by name in its own
-file, and every per-layer metric's cells reporting the end-to-end metric
-it moves."""
+file (a cell's runner among them), and every per-layer metric's cells
+reporting the end-to-end metric it moves."""
 
 import json
 import re
@@ -70,6 +70,7 @@ def test_workloads_found_by_name():
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert w["chips"] in (1, 4) and line(w["why"]) and NAME.match(w["traffic"])
         cell = cells.load_cell(w["name"])
+        assert cells.runner_path(cell["runner"]).is_file()
         assert cell["name"] == w["name"] and cell["config"] == w["config"]
         assert cell["traffic"]["name"] == w["traffic"] and cell["chips"] == w["chips"]
         assert cell["why"] == w["why"] and cell["limits"]

@@ -8,7 +8,7 @@ widths on the card); the mechanism under test is the same."""
 import pytest
 import torch
 
-from perfbench import calibrate, compare, faults, run
+from perfbench import compare, faults, run, stage1, stage2
 from perfbench.tests.tiny import tiny_cell
 
 SEED = 2 ** 31 + 7
@@ -66,7 +66,7 @@ def test_stage1_fault_is_caught(name):
 
 def test_controls_fail_the_limits():
     """The reference a precision step down in the program's place."""
-    n2 = calibrate.control_stage2(s2_cell(), SEED, CPU)
+    n2 = stage2.control(s2_cell(), SEED, CPU)
     assert not all(c["ok"] for c in compare.judge(n2, TINY_S2).values()), n2
-    n1 = calibrate.control_stage1(s1_cell(), SEED, CPU)
+    n1 = stage1.control(s1_cell(), SEED, CPU)
     assert not all(c["ok"] for c in compare.judge(n1, TINY_S1).values()), n1

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from perfbench import derive_work
+from perfbench import derive_work, stage2
 from perfbench.gen.scene import build_scene
 from perfbench.tests.tiny import tiny_cell
 
@@ -52,7 +52,7 @@ def test_dense_layer_count_by_hand():
 
 def test_stage2_parts():
     cell = tiny_cell("scannet-s2-v64")
-    w = derive_work.stage2(cell)
+    w = stage2.work(cell)
     sc, pc = cell["traffic"]["scene"], cell["program"]["pooling"]
     n_cls = 19
     assert w["parts"]["smoothing"] == pc["num_iterations"] * 2 * sc["voxels"] * pc["knn_k"] * n_cls
